@@ -1,0 +1,112 @@
+"""Builds the hand-written CUDA kernels and binds them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+with ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/<name>-<hash>.so``
+(the hash covers the source and the flags, so an edited source rebuilds).
+Building happens at first use, never at import: a machine without ``nvcc``
+can import every module and run the plain versions on CPU tensors.
+``build_all`` starts one ``nvcc`` per source at once and waits for all.
+
+Launch accounting lives here too: ``LAUNCHES[name]`` counts the times a
+wrapper launched its kernel, ``PLAIN_ON_CUDA[name]`` the times a plain
+version ran on a CUDA tensor (a run that should have gone through the
+kernel, or a deliberate comparison).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from collections import Counter
+
+__all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "reset_counts", "build_all",
+           "library", "build_dir", "check"]
+
+KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4")
+LAUNCHES: Counter = Counter()
+PLAIN_ON_CUDA: Counter = Counter()
+
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    PLAIN_ON_CUDA.clear()
+
+
+def build_dir() -> pathlib.Path:
+    """``build/kernels`` at the checkout's root (listed in ``.gitignore``)."""
+    return _CSRC.parents[2] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels are built on the machine with the card")
+
+
+def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    src = _CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode())
+    for inc in sorted(_CSRC.glob("*.cuh")):
+        h.update(inc.read_bytes())
+    return src, build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=KERNELS) -> float:
+    """Compile every missing library in parallel; returns the seconds spent."""
+    t0 = time.perf_counter()
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        src, so = _target(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(so.name + f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, so)
+    errors = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            tmp.replace(so)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _, so = _target(name)
+        if not so.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(so))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -1,0 +1,150 @@
+"""Fused quantize + LUT-GEMM: CUDA kernel wrapper and its plain version.
+
+Replaces ``repro/kernels/lut_gemm.py::fused_lut_gemm_kernel_call``. The kernel
+is ``repro_torch/csrc/fused_lut_gemm.cu``; :func:`fused_lut_gemm_plain` is the
+port of ``repro/kernels/ref.py::fused_lut_gemm_ref``. Both return the
+UNSCALED (M, N) float32 product; the caller applies ``s * qw.scale``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["fused_lut_gemm", "fused_lut_gemm_plain", "bucketize_plain", "exact_sum_inputs"]
+
+NAME = "fused_lut_gemm"
+_UP, _DOWN = torch.tensor(float("inf")), torch.tensor(float("-inf"))
+
+
+def _nudge(v: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """``v`` moved by ``steps`` float32 ulps (|steps| <= 3)."""
+    for d in range(3):
+        v = torch.where(steps > d, torch.nextafter(v, _UP), v)
+        v = torch.where(steps < -d, torch.nextafter(v, _DOWN), v)
+    return v
+
+
+def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: bool,
+                     seed: int = 0):
+    """Kernel inputs on which the float32 sum is exact and the index choice
+    is as hard as it gets; returns ``(x, scale, w_packed, boundaries, a_book,
+    w_book)`` on the CPU, for ``k <= 11008``.
+
+    Both codebooks lie on a 1/8 grid with magnitudes <= 3, so each product is
+    a multiple of 1/64 and every partial sum over K <= 11008 stays below 2^24
+    such steps: any summation order gives the same float32 result, and a
+    kernel must equal the plain version bit for bit. A quarter of the
+    activations sit on ``s * b_j`` or within two ulps of it. For bfloat16 x,
+    each row's scale is chosen so that ``x >= s * b_j`` and ``x / s >= b_j``
+    disagree on that row's planted value: a kernel with the wrong compare
+    form, an inexact division or a wrong nibble order changes an output.
+    """
+    from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.models.model import _default_codebook
+
+    assert k <= 11008, "partial sums could leave the exact float32 range"
+    g = torch.Generator().manual_seed(seed)
+    a_book = torch.round(_default_codebook(4) * 8) / 8
+    bounds = boundaries_from_centroids(a_book).contiguous()
+    n_w = 256 if byte_packed else 16
+    w_book = torch.sort(torch.round(torch.randn(n_w, generator=g).clamp(-3, 3) * 8) / 8).values
+    w = torch.randint(0, 256, (k, n if byte_packed else n // 2), generator=g, dtype=torch.uint8)
+    x = torch.randn((m, k), generator=g)
+    x[:, :: max(1, k // 7)] *= 12.0  # a few outlier channels
+    hug = torch.rand((m, k), generator=g) < 0.25
+    steps = torch.randint(-2, 3, (m, k), generator=g)
+    nonzero = bounds[bounds != 0]  # next to 0 lie subnormals, which XLA's CPU flushes
+    if x_dtype == torch.bfloat16:
+        b = nonzero[torch.randint(0, nonzero.numel(), (m,), generator=g)][:, None, None]
+        # per row, 16 bfloat16 targets t and the scales within 3 ulps of t / b:
+        # take the first pair on which the two forms disagree
+        t = (b * (torch.rand((m, 16, 1), generator=g) + 0.5)).to(torch.bfloat16).float()
+        cands = _nudge(t / b, torch.arange(-3, 4)[None, None, :])
+        differs = ((t >= cands * b) != (t / cands >= b)).reshape(m, -1)
+        pick = torch.where(differs.any(1), differs.int().argmax(1), 3)[:, None]
+        s = cands.reshape(m, -1).gather(1, pick)
+        t = t.expand(-1, -1, 7).reshape(m, -1).gather(1, pick)
+        tb = t.to(torch.bfloat16).expand(m, k)
+        near = (tb.view(torch.int16) + steps.short()).view(torch.bfloat16)  # t +- 2 ulps
+        x = torch.where(hug, near, (x * s).to(torch.bfloat16))
+    else:
+        s = torch.rand((m, 1), generator=g) + 0.5
+        j = torch.randint(0, nonzero.numel(), (m, k), generator=g)
+        x = torch.where(hug, _nudge(s * nonzero[j], steps), x * s)
+    return x.contiguous(), s.contiguous(), w, bounds, a_book, w_book
+
+
+def bucketize_plain(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(boundaries, x, side='right')`` as int32."""
+    return torch.searchsorted(boundaries.contiguous(), x.contiguous(), right=True).int()
+
+
+def fused_lut_gemm_plain(x, scale, w_packed, boundaries, a_book, w_book, *,
+                         byte_packed: bool = False, mul_form: bool = False) -> torch.Tensor:
+    """Quantize-then-index-GEMM with the kernel's exact index selection."""
+    if x.is_cuda:
+        build.PLAIN_ON_CUDA[NAME] += 1
+    xf = x.float()
+    if mul_form:
+        a_idx = (xf[..., None] >= scale[..., None] * boundaries).sum(-1)
+    else:
+        a_idx = bucketize_plain(xf / scale, boundaries)
+    if byte_packed:
+        w_idx = w_packed.long()
+    else:
+        w_idx = torch.stack([w_packed & 0xF, w_packed >> 4], dim=-1).reshape(
+            w_packed.shape[0], -1).long()
+    a = a_book.float()[a_idx.long()]
+    w = w_book.float()[w_idx]
+    return a @ w
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{NAME}: {msg}")
+
+
+def fused_lut_gemm(x, scale, w_packed, boundaries, a_book, w_book, *,
+                   byte_packed: bool = False, mul_form: bool = False) -> torch.Tensor:
+    """x (M, K) float32|bfloat16, scale (M, 1) float32, w_packed (K, N/2) or
+    (K, N) uint8, boundaries (2^a - 1,), a_book (2^a,), w_book (2^w,) float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    m, k = x.shape
+    n = w_packed.shape[1] * (1 if byte_packed else 2)
+    _require(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype}")
+    _require(w_packed.dtype == torch.uint8 and w_packed.shape[0] == k,
+             f"w_packed must be uint8 with K={k} rows, got {w_packed.dtype} {tuple(w_packed.shape)}")
+    _require(tuple(scale.shape) == (m, 1) and scale.dtype == torch.float32,
+             f"scale must be float32 ({m}, 1), got {scale.dtype} {tuple(scale.shape)}")
+    nb = boundaries.shape[0]
+    _require(1 <= nb <= 15 and tuple(a_book.shape) == (nb + 1,), "a_bits must be in [1, 4]")
+    _require(1 <= w_book.shape[0] <= (256 if byte_packed else 16),
+             "weight codebook must have <= 16 (nibble) or <= 256 (byte) entries")
+    tensors = (x, scale, w_packed, boundaries, a_book, w_book)
+    _require(all(t.device == x.device for t in tensors), "inputs must share one device")
+    _require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _require(all(t.dtype == torch.float32 for t in (boundaries, a_book, w_book)),
+             "boundaries and codebooks must be float32")
+    if x.device.type == "cpu":
+        return fused_lut_gemm_plain(x, scale, w_packed, boundaries, a_book, w_book,
+                                    byte_packed=byte_packed, mul_form=mul_form)
+    _require(x.is_cuda, f"unsupported device {x.device}")
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = build.library(NAME)
+    fn = lib.fused_lut_gemm
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, i, p, i, i, p, p, i, p, i, i, i, p]
+    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+             w_packed.data_ptr(), int(byte_packed), boundaries.data_ptr(), nb,
+             int(mul_form), a_book.data_ptr(), w_book.data_ptr(), w_book.shape[0],
+             y.data_ptr(), m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, NAME)
+    build.LAUNCHES[NAME] += 1
+    return y

@@ -1,0 +1,114 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on a card.
+
+Run on a machine with an NVIDIA card (the kernels build with ``nvcc`` on
+first use): ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
+Without a card every test here skips. Indices and channels must match
+exactly; float32 outputs within the summation-order bounds stated below,
+and bit for bit on inputs where every summation order is exact.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.gpu
+
+U32 = 2.0**-24
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n,byte,bf16", [
+    (72, 2048, 512, False, True),
+    (72, 2048, 2048, False, False),
+    (72, 1024, 256, True, True),
+    (5, 1000, 100, False, False),
+    (3, 1100, 40, True, False),
+])
+def test_fused_lut_gemm_kernel_vs_plain(dev, m, k, n, byte, bf16):
+    from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_gemm import (exact_sum_inputs, fused_lut_gemm,
+                                              fused_lut_gemm_plain)
+    from repro_torch.models.model import _default_codebook
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=dev) * 1.5
+    x = x.to(torch.bfloat16) if bf16 else x
+    s = x.float().square().mean(-1, keepdim=True).sqrt()
+    a_book = _default_codebook(4, device=dev)
+    bounds = boundaries_from_centroids(a_book).contiguous()
+    w_book = torch.sort(torch.randn(256 if byte else 16, generator=g, device=dev)).values
+    w = torch.randint(0, 256, (k, n if byte else n // 2), generator=g, device=dev,
+                      dtype=torch.uint8)
+    kw = dict(byte_packed=byte, mul_form=bf16)
+    launches = build.LAUNCHES["fused_lut_gemm"]
+    y = fused_lut_gemm(x, s, w, bounds, a_book, w_book, **kw)
+    ref = fused_lut_gemm_plain(x, s, w, bounds, a_book, w_book, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fused_lut_gemm"] == launches + 1
+    # rounding errors of two summation orders grow like sqrt(K) u (|a| @ |w|);
+    # one activation index on another centroid moves a row by far more
+    step = a_book.diff().min().item() * w_book.abs().max().item()
+    bound = 2 * k**0.5 * U32 * (a_book.abs().max() * w_book.abs().max() * k).item()
+    assert bound < step
+    assert (y - ref).abs().max().item() <= bound
+    # exact sums: the kernel must equal the plain version bit for bit
+    args = [a.to(dev) for a in exact_sum_inputs(m, k, n, x.dtype, byte, seed=k)]
+    assert torch.equal(fused_lut_gemm(*args, **kw), fused_lut_gemm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("m,n,k,kind", [
+    (72, 2048, 10, "normal"), (72, 8192, 41, "normal"), (72, 2047, 10, "normal"),
+    (16, 2048, 10, "duplicates"), (4, 512, 7, "equal"), (3, 11008, 55, "normal"),
+])
+def test_topk_kernel_vs_plain_exact(dev, m, n, k, kind):
+    from repro_torch.kernels.topk_outlier import topk_outlier_call, topk_outlier_plain
+
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    if kind == "normal":
+        x = torch.randn((m, n), generator=g, device=dev)
+    elif kind == "duplicates":
+        x = torch.randint(-3, 4, (m, n), generator=g, device=dev).float()
+    else:
+        x = torch.full((m, n), 0.5, device=dev)
+    for got, want in zip(topk_outlier_call(x, k), topk_outlier_plain(x, k)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,s,softcap,window", [(72, 1, 0.0, 0), (9, 4, 20.0, 40)])
+def test_paged_attn_kernel_vs_plain(dev, b, s, softcap, window):
+    from repro_torch.kernels.paged_attn import paged_attn_int4, paged_attn_quant_plain
+    from repro_torch.models.model import _default_codebook
+
+    kv, grp, hd, bs, max_blk, nb = 8, 4, 64, 16, 16, 128
+    g = torch.Generator(device=dev).manual_seed(b + s)
+    u8 = dict(generator=g, device=dev, dtype=torch.uint8)
+    ki = torch.randint(0, 256, (nb, bs, kv, hd // 2), **u8)
+    vi = torch.randint(0, 256, (nb, bs, kv, hd // 2), **u8)
+    ks = torch.rand((nb, bs, kv, 1), generator=g, device=dev) + 0.5
+    vs = torch.rand((nb, bs, kv, 1), generator=g, device=dev) + 0.5
+    q = torch.randn((b, s, kv, grp, hd), generator=g, device=dev)
+    ctx = torch.randint(1, max_blk * bs + 1, (b,), generator=g, device=dev)
+    ctx[-1] = 0
+    tables = torch.randint(0, nb, (b, max_blk), generator=g, device=dev)
+    ar = torch.arange(max_blk, device=dev)
+    tables[ar[None, :] >= ((ctx + bs - 1) // bs)[:, None]] = -1
+    qpos = (ctx[:, None] - s + torch.arange(s, device=dev)[None, :]).clamp(min=-1)
+    qpos[ctx == 0] = -1
+    args = (q, ki, ks, vi, vs, _default_codebook(4, device=dev), tables.int(), ctx.int(),
+            qpos.int().contiguous())
+    out = paged_attn_int4(*args, softcap=softcap, window=window)
+    ref = paged_attn_quant_plain(*args, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    live = qpos >= 0
+    vmax = (args[5].abs().max() * vs.max()).item()
+    # convex combinations of values summed in two orders: 4 n u max|v|
+    assert (out - ref).abs()[live].max().item() <= 4 * max_blk * bs * U32 * vmax
+    assert torch.isfinite(out).all()
