@@ -4,19 +4,34 @@
 Phases, each printing one JSON line:
 
 1. device  -- the card's name and count, and what ``nvidia-smi`` reports.
-2. build   -- compiles the three CUDA kernels from ``src/repro_torch/csrc``.
+2. build   -- compiles the seven CUDA kernels from ``src/repro_torch/csrc``,
+              one ``nvcc`` per source, all at once.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               llama3_2_1b's serving shapes (72 token rows = 8 decode slots +
-              a 64-token prefill chunk), with times, bounds and yardsticks;
-              the LUT-GEMM also bit for bit on inputs with exact sums.
+              a 64-token prefill chunk), with times, bounds and yardsticks
+              (the top-k, streaming and bucketize kernels also with their
+              device time under the profiler); both LUT-GEMMs also bit for
+              bit on inputs with exact sums, where bucketize + index GEMM
+              must equal the fused kernel.
 4. model   -- a 2-layer, full-width llama3_2_1b: one packed serving step on
               the card against the same step on the CPU (plain versions),
-              for three seeds, with a nibble-swapped control that must fail.
+              for three seeds, on the fused route (int4 KV) and on path A
+              (plain GEMM + streaming detection, bf16 KV), with a
+              nibble-swapped control that must fail; path A with streaming
+              and with plain detection must give equal logits on the card.
 5. serve   -- the full 16-layer llama3_2_1b, quantized by the port under the
               W4A4 + W8 mlp/wd + int4 KV spec, serving 16 seeded requests;
               every projection and attention of every step must have gone
-              through its kernel (launch counts exact, no plain route and
-              no plain version on a CUDA tensor), then a profiled extra run.
+              through its kernel (launch and dispatch counts exact, no plain
+              route and no plain version on a CUDA tensor), then a profiled
+              extra run.
+5b. serve_a -- path A: the same weights on the plain GEMM route and the
+              default bf16 KV pool, the same requests and the same checks
+              with the streaming and float-page attention kernels.
+6. quickstart -- ``repro_torch.examples.quickstart`` on the card; its own
+              checks (the index LUT-GEMM within its float32 bound of the
+              factorized form at the quickstart's shape), and the index
+              LUT-GEMM and bucketize kernels launched.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -41,6 +56,10 @@ TPU_KERNELS = {
     "fused_lut_gemm": "src/repro/kernels/lut_gemm.py:241",
     "topk_outlier": "src/repro/kernels/topk_outlier.py:195",
     "paged_attn_int4": "src/repro/kernels/paged_attn.py:117",
+    "paged_attn_bf16": "src/repro/kernels/paged_attn.py:117",
+    "streaming_quantize_outlier": "src/repro/kernels/topk_outlier.py:221",
+    "lut_gemm": "src/repro/kernels/lut_gemm.py:192",
+    "bucketize": "src/repro/kernels/bucketize.py:37",
 }
 ROWS = 72  # token budget of the serving phase: 8 slots + 64 prefill tokens
 
@@ -74,6 +93,25 @@ def cuda_ms(fns, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fns, reps: int) -> float | None:
+    """Device ms per call over the same loop as ``cuda_ms``, from the
+    profiler's kernel events: the kernels' own time without the gaps between
+    launches (None if the profiler saw no kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def copies_for(nbytes: int) -> int:
     """Input copies so one cycle moves > 120 MB (2.4x the 50 MB L2)."""
     return max(1, min(32, math.ceil(120e6 / max(nbytes, 1))))
@@ -88,26 +126,53 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, reps=50):
-    """Two checks, then the times. (1) Gaussian codebooks as served: the
-    kernel within 2 sqrt(K) u max(|a| @ |w|) of its plain version, the scale
-    of float32 rounding over K terms summed in two orders, and asserted below
-    the smallest change one activation index on a neighbouring centroid
-    makes to its row. (2) ``exact_sum_inputs``: every summation order gives
-    the same sum, so the kernel must equal its plain version bit for bit on
-    activations planted on and next to the boundaries; as a control, the
-    kernel run with the other compare form must differ there."""
+def act_indices(x, s, bounds, mul_form):
+    """Plain activation indices (int32) in the compare form of the input
+    dtype: ``x >= s * b`` for bfloat16 origin, ``x / s >= b`` for float32."""
+    import torch
+
+    from repro_torch.core.quantize import bucketize_mul_form
+    from repro_torch.kernels.bucketize import rank
+
+    if mul_form:
+        return bucketize_mul_form(x, s, bounds, dtype=torch.int32)
+    return rank(x.float() / s, bounds)
+
+
+def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50):
+    """A LUT-GEMM kernel against its plain version: the fused kernel
+    (bucketize in the tile) or, with ``fused=False``, the index kernel on
+    plain activation indices. Two checks, then the times. (1) Gaussian
+    codebooks as served: the kernel within 2 sqrt(K) u max(|a| @ |w|) of its
+    plain version, the scale of float32 rounding over K terms summed in two
+    orders, and asserted below the smallest change one activation index on a
+    neighbouring centroid makes to its row. (2) ``exact_sum_inputs``: every
+    summation order gives the same sum, so the kernel must equal its plain
+    version bit for bit on activations planted on and next to the
+    boundaries. There, as a control, the fused kernel run with the other
+    compare form must differ; and the unfused pipeline -- the bucketize
+    kernel (division form) or the mul-form indices (bfloat16), then the
+    index kernel -- must equal the fused kernel bit for bit."""
     import torch
 
     from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.kernels.bucketize import bucketize_call
     from repro_torch.kernels.lut_gemm import (exact_sum_inputs, fused_lut_gemm,
-                                              fused_lut_gemm_plain)
+                                              fused_lut_gemm_plain, lut_gemm, lut_gemm_plain)
     from repro_torch.models.model import _default_codebook
 
     a_book = _default_codebook(4, device=dev)
     bounds = boundaries_from_centroids(a_book).contiguous()
     n_w = 256 if byte_packed else 16
     w_book = torch.sort(torch.randn(n_w, generator=gen, device=dev)).values
+    mul_form = x_dtype == torch.bfloat16
+    fkw = dict(byte_packed=byte_packed, mul_form=mul_form)
+    if fused:
+        kern = lambda t: fused_lut_gemm(t[0], t[1], t[2], bounds, a_book, w_book, **fkw)
+        plain = lambda t: fused_lut_gemm_plain(t[0], t[1], t[2], bounds, a_book, w_book, **fkw)
+    else:
+        kern = lambda t: lut_gemm(t[0], t[1], a_book, w_book, byte_packed=byte_packed)
+        plain = lambda t: lut_gemm_plain(t[0], t[1], a_book, w_book, byte_packed=byte_packed)
 
     def inputs():
         x = torch.randn((m, k), generator=gen, device=dev)
@@ -116,106 +181,155 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, reps=50):
         s = torch.sqrt(torch.mean(x.float() ** 2, dim=-1, keepdim=True)).clamp(min=1e-12)
         cols = n if byte_packed else n // 2
         w = torch.randint(0, 256, (k, cols), generator=gen, device=dev, dtype=torch.uint8)
-        return x, s, w
+        return (x, s, w) if fused else (act_indices(x, s, bounds, mul_form), w)
 
-    x, s, w = inputs()
-    mul_form = x_dtype == torch.bfloat16
-    kw = dict(byte_packed=byte_packed, mul_form=mul_form)
-    y = fused_lut_gemm(x, s, w, bounds, a_book, w_book, **kw)
-    ref = fused_lut_gemm_plain(x, s, w, bounds, a_book, w_book, **kw)
-    if byte_packed:
-        w_idx = w.long()
-    else:
-        w_idx = torch.stack([w & 0xF, w >> 4], dim=-1).reshape(k, -1).long()
-    xf = x.float()
-    if mul_form:
-        a_idx = (xf[..., None] >= s[..., None] * bounds).sum(-1)
-    else:
-        a_idx = torch.searchsorted(bounds, (xf / s).contiguous(), right=True)
+    args = inputs()
+    y, ref = kern(args), plain(args)
+    a_idx = act_indices(args[0], args[1], bounds, mul_form) if fused else args[0]
+    w = args[-1]
+    w_idx = w.long() if byte_packed else torch.stack([w & 0xF, w >> 4], -1).reshape(k, -1).long()
     w_deq = w_book[w_idx]
-    mag = a_book[a_idx].abs() @ w_deq.abs()
+    mag = a_book[a_idx.long()].abs() @ w_deq.abs()
     # one index on a neighbouring centroid moves its row by at least this
     flip = (a_book.diff().min() * w_deq.abs().amax(1).min()).item()
     torch.cuda.synchronize()
     err = (y - ref).abs().max().item()
     tol = 2 * math.sqrt(k) * U32 * mag.max().item()
-    ex = [t.to(dev) for t in exact_sum_inputs(m, k, n, x_dtype, byte_packed, seed=m + k + n)]
-    ex_ref = fused_lut_gemm_plain(*ex, **kw)
-    exact = torch.equal(fused_lut_gemm(*ex, **kw), ex_ref)
-    wrong_rows = int((fused_lut_gemm(*ex, byte_packed=byte_packed, mul_form=not mul_form)
-                      != ex_ref).any(1).sum())
-    ok = (bool(torch.isfinite(y).all()) and err <= tol < flip and exact and wrong_rows > 0)
-    x_bytes = m * k * x.element_size()
-    w_bytes = w.numel()
-    nbytes = x_bytes + m * 4 + w_bytes + 4 * (15 + 16 + n_w) + m * n * 4
-    sets = [inputs() for _ in range(copies_for(x_bytes + w_bytes))]
-    ms = cuda_ms([lambda t=t: fused_lut_gemm(t[0], t[1], t[2], bounds, a_book, w_book, **kw)
-                  for t in sets], reps)
-    plain_ms = cuda_ms([lambda t=t: fused_lut_gemm_plain(t[0], t[1], t[2], bounds, a_book,
-                                                         w_book, **kw) for t in sets[:2]], 5)
+    x, s, wx, bx, ab, wb = [t.to(dev) for t in exact_sum_inputs(m, k, n, x_dtype, byte_packed,
+                                                                 seed=m + k + n)]
+    fused_ex = fused_lut_gemm(x, s, wx, bx, ab, wb, **fkw)
+    if fused:
+        ex_ref = fused_lut_gemm_plain(x, s, wx, bx, ab, wb, **fkw)
+        wrong = fused_lut_gemm(x, s, wx, bx, ab, wb, byte_packed=byte_packed,
+                               mul_form=not mul_form)
+        checks = dict(exact_sums_equal=torch.equal(fused_ex, ex_ref),
+                      wrong_form_rows_differ=int((wrong != ex_ref).any(1).sum()))
+        checked = checks["exact_sums_equal"] and checks["wrong_form_rows_differ"] > 0
+    else:
+        ex_idx = (act_indices(x, s, bx, True) if mul_form
+                  else bucketize_call((x.float() / s).contiguous(), bx))
+        unfused = lut_gemm(ex_idx, wx, ab, wb, byte_packed=byte_packed)
+        checks = dict(exact_sums_equal=torch.equal(unfused, lut_gemm_plain(
+                          ex_idx, wx, ab, wb, byte_packed=byte_packed)),
+                      unfused_equals_fused=torch.equal(unfused, fused_ex))
+        checked = all(checks.values())
+    ok = bool(torch.isfinite(y).all()) and err <= tol < flip and checked
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes = in_bytes + 4 * ((15 if fused else 0) + 16 + n_w) + m * n * 4
+    sets = [inputs() for _ in range(copies_for(in_bytes))]
+    ms = cuda_ms([lambda t=t: kern(t) for t in sets], reps)
+    plain_ms = cuda_ms([lambda t=t: plain(t) for t in sets[:2]], 5)
     # yardstick only: bf16 tensor-core matmul against a pre-dequantized weight
-    wd = [(t[0].to(torch.bfloat16), w_deq.to(torch.bfloat16)) for t in sets[:3]]
-    lib_ms = cuda_ms([lambda t=t: torch.matmul(t[0], t[1]) for t in wd], reps)
+    wd = w_deq.to(torch.bfloat16)
+    xd = [torch.randn((m, k), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3)]
+    lib_ms = cuda_ms([lambda t=t: torch.matmul(t, wd) for t in xd], reps)
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
     res = dict(case=tag, M=m, K=k, N=n, x_dtype=str(x_dtype).removeprefix("torch."),
                tier="byte" if byte_packed else "nibble", max_abs_err=err, tol=tol,
-               one_flip=flip, exact_sums_equal=exact, wrong_form_rows_differ=wrong_rows,
-               ok=ok, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by)
-    emit("kernel_fused_lut_gemm", **res)
+               one_flip=flip, **checks, ok=ok, kernel_ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("kernel_fused_lut_gemm" if fused else "kernel_lut_gemm", **res)
     return res
 
 
-def topk_case(dev, gen, m, n, k, kind, reps=100):
+def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
+    """Orizuru's dual top-k kernel or, with ``mul_form`` set, the streaming
+    quantize + detect kernel (indices in that compare form, then the same
+    top-k), ``torch.equal`` to its plain version given the same scale:
+    indices, values and channels must match exactly."""
     import torch
 
-    from repro_torch.kernels.topk_outlier import topk_outlier_call, topk_outlier_plain
+    from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.kernels.topk_outlier import (streaming_quantize_outlier_call,
+                                                  streaming_quantize_outlier_plain,
+                                                  topk_outlier_call, topk_outlier_plain)
+    from repro_torch.models.model import _default_codebook
+
+    streaming = mul_form is not None
+    bounds = boundaries_from_centroids(_default_codebook(4, device=dev)).contiguous()
+    if streaming:
+        kern = lambda t: streaming_quantize_outlier_call(t[0], t[1], bounds, k, mul_form=mul_form)
+        plain = lambda t: streaming_quantize_outlier_plain(t[0], t[1], bounds, k,
+                                                           mul_form=mul_form)
+        # yardstick only: torch.bucketize of x / s and two torch.topk
+        lib = lambda t: (torch.bucketize(t[0] / t[1], bounds, right=True), torch.topk(t[0], k),
+                         torch.topk(-t[0], k))
+    else:
+        kern = lambda t: topk_outlier_call(t[0], k)
+        plain = lambda t: topk_outlier_plain(t[0], k)
+        lib = lambda t: (torch.topk(t[0], k), torch.topk(-t[0], k))
 
     def inputs():
         if kind == "normal":
             x = torch.randn((m, n), generator=gen, device=dev)
+            if streaming:  # activations: wider, with a few outlier channels
+                x = x * 2
+                x[:, :: max(1, n // 7)] *= 12.0
         elif kind == "duplicates":
             x = torch.randint(-3, 4, (m, n), generator=gen, device=dev).float()
         else:  # all-equal rows, one with +-inf entries
             x = torch.full((m, n), 0.5, device=dev)
             x[0, 3], x[0, 7] = float("inf"), float("-inf")
-        return x.contiguous()
+        if not streaming:
+            return (x.contiguous(),)
+        if mul_form:  # the mul form serves bfloat16 activations
+            x = x.to(torch.bfloat16).float()
+        s = torch.sqrt(torch.mean(torch.where(torch.isfinite(x), x, 0) ** 2, -1, keepdim=True))
+        return x.contiguous(), s.clamp(min=1e-12)
 
-    x = inputs()
-    got = topk_outlier_call(x, k)
-    want = topk_outlier_plain(x, k)
+    args = inputs()
+    got, want = kern(args), plain(args)
     torch.cuda.synchronize()
     ok = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = 0.0 if ok else float("inf")  # values and channels must match exactly
-    nbytes = m * n * 4 + 4 * m * k * 4
-    sets = [inputs() for _ in range(copies_for(m * n * 4))]
-    ms = cuda_ms([lambda t=t: topk_outlier_call(t, k) for t in sets], reps)
-    plain_ms = cuda_ms([lambda t=t: topk_outlier_plain(t, k) for t in sets[:2]], 10)
-    lib_ms = cuda_ms([lambda t=t: (torch.topk(t, k), torch.topk(-t, k)) for t in sets], reps)
-    comps = m * (1.5 * n + 2 * k * math.log2(n))  # Orizuru comparison count
-    b_ms, b_by = bound(nbytes, comps)
-    res = dict(case=f"{kind} N={n} k={k}", M=m, N=n, k=k, exact=ok, max_abs_err=err, ok=ok,
-               kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("kernel_topk_outlier", **res)
+    x_bytes = m * n * 4 * (2 if streaming else 1)  # streaming: x in, indices out
+    sets = [inputs() for _ in range(copies_for(x_bytes))]
+    ms = cuda_ms([lambda t=t: kern(t) for t in sets], reps)
+    dev_ms = device_ms([lambda t=t: kern(t) for t in sets], reps)
+    plain_ms = cuda_ms([lambda t=t: plain(t) for t in sets[:2]], 10)
+    lib_ms = cuda_ms([lambda t=t: lib(t) for t in sets], reps)
+    ops = m * (1.5 * n + 2 * k * math.log2(n))  # Orizuru comparison count
+    nbytes = x_bytes + 4 * m * k * 4
+    if streaming:  # the scale, the boundaries, and the scale and compares per entry
+        nbytes, ops = nbytes + m * 4 + 15 * 4, ops + m * n * (1 + 15)
+    b_ms, b_by = bound(nbytes, ops)
+    form = f" {'mul' if mul_form else 'div'} form" if streaming else ""
+    res = dict(case=f"{kind} N={n} k={k}{form}", M=m, N=n, k=k, exact=ok,
+               max_abs_err=0.0 if ok else float("inf"), ok=ok, kernel_ms=ms,
+               kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    emit("kernel_streaming_quantize_outlier" if streaming else "kernel_topk_outlier", **res)
     return res
 
 
-def attn_case(dev, gen, b, s, tag, softcap=0.0, window=0, reps=50):
+def attn_case(dev, gen, b, s, tag, pages="int4", softcap=0.0, window=0, reps=50):
+    """Paged attention against its plain version, over int4 K-Means pages
+    (``pages="int4"``) or float pages of the torch dtype ``pages``. Both
+    sides are convex combinations of the values summed in other orders, so
+    within 4 n_keys u max|v|."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attn import paged_attn_int4, paged_attn_quant_plain
+    from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
+                                                paged_attn_plain, paged_attn_quant_plain)
     from repro_torch.models.model import _default_codebook
 
     kv, g, hd, bs, max_blk, n_blocks = 8, 4, 64, 16, 64, 512
+    int4 = pages == "int4"
     book = _default_codebook(4, device=dev)
+    kern, plain = ((paged_attn_int4, paged_attn_quant_plain) if int4
+                   else (paged_attn_bf16, paged_attn_plain))
 
     def inputs():
-        ki = torch.randint(0, 256, (n_blocks, bs, kv, hd // 2), generator=gen, device=dev,
-                           dtype=torch.uint8)
-        vi = torch.randint(0, 256, ki.shape, generator=gen, device=dev, dtype=torch.uint8)
-        ks = torch.rand((n_blocks, bs, kv, 1), generator=gen, device=dev) + 0.5
-        vs = torch.rand((n_blocks, bs, kv, 1), generator=gen, device=dev) + 0.5
+        if int4:
+            ki = torch.randint(0, 256, (n_blocks, bs, kv, hd // 2), generator=gen, device=dev,
+                               dtype=torch.uint8)
+            vi = torch.randint(0, 256, ki.shape, generator=gen, device=dev, dtype=torch.uint8)
+            ks = torch.rand((n_blocks, bs, kv, 1), generator=gen, device=dev) + 0.5
+            vs = torch.rand((n_blocks, bs, kv, 1), generator=gen, device=dev) + 0.5
+            pool = (ki, ks, vi, vs, book)
+        else:
+            pool = tuple(torch.randn((n_blocks, bs, kv, hd), generator=gen, device=dev)
+                         .to(pages) for _ in "kv")
         q = torch.randn((b, s, kv, g, hd), generator=gen, device=dev)
         ctx = torch.randint(1, max_blk * bs + 1, (b,), generator=gen, device=dev)
         ctx[-2:] = 0  # idle rows
@@ -226,30 +340,28 @@ def attn_case(dev, gen, b, s, tag, softcap=0.0, window=0, reps=50):
         qpos[ctx == 0] = -1
         if s > 1:
             qpos[0, -1] = -1  # a padded cell inside a live segment
-        return tuple(t.contiguous() for t in (
-            q, ki, ks, vi, vs, book, tables.int(), ctx.int(), qpos.int()))
+        return tuple(t.contiguous() for t in (q, *pool, tables.int(), ctx.int(), qpos.int()))
 
     args = inputs()
     kw = dict(softcap=softcap, window=window)
-    out = paged_attn_int4(*args, **kw)
-    ref = paged_attn_quant_plain(*args, **kw)
+    out, ref = kern(*args, **kw), plain(*args, **kw)
     torch.cuda.synchronize()
-    live = args[8] >= 0  # rows that see at least one key (q_pos < ctx here)
+    tables, ctx, qpos = (t.long() for t in args[-3:])
+    live = qpos >= 0  # rows that see at least one key (q_pos < ctx here)
     err = (out - ref).abs()[live].max().item()
-    vmax = (book.abs().max() * args[4].max()).item()
-    n_keys = int(args[7].max())
-    # both sides are convex combinations of values; the sums differ in order
-    tol = 4 * n_keys * U32 * vmax
+    v_max = (book.abs().max() * args[4].max()) if int4 else args[2].float().abs().max()
+    tol = 4 * int(ctx.max()) * U32 * v_max.item()
     ok = bool(torch.isfinite(out).all()) and err <= tol
-    ctx, tables = args[7].long(), args[6].long()
     nblk = (ctx + bs - 1) // bs
     used = torch.unique(tables[torch.arange(max_blk, device=dev)[None, :] < nblk[:, None]])
-    kv_bytes = used.numel() * bs * kv * (hd // 2 + 4) * 2
-    nbytes = 2 * args[0].numel() * 4 + kv_bytes + 4 * (tables.numel() + 2 * b + b * s) + 64
+    row_bytes = hd // 2 + 4 if int4 else hd * args[1].element_size()  # one head's K of a token
+    kv_bytes = used.numel() * bs * kv * row_bytes * 2
+    nbytes = (2 * args[0].numel() * 4 + kv_bytes + 4 * (tables.numel() + 2 * b + b * s)
+              + (book.numel() * 4 if int4 else 0))
     flops = 4.0 * s * g * hd * kv * float(ctx.sum())
     sets = [inputs() for _ in range(copies_for(kv_bytes))]
-    ms = cuda_ms([lambda t=t: paged_attn_int4(*t, **kw) for t in sets], reps)
-    plain_ms = cuda_ms([lambda t=t: paged_attn_quant_plain(*t, **kw) for t in sets[:2]], 5)
+    ms = cuda_ms([lambda t=t: kern(*t, **kw) for t in sets], reps)
+    plain_ms = cuda_ms([lambda t=t: plain(*t, **kw) for t in sets[:2]], 5)
     # yardstick only: SDPA over the same keys pre-gathered as dense bf16
     qd = args[0].permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, hd).to(torch.bfloat16)
     kd = torch.randn((b, kv * g, max_blk * bs, hd), device=dev, dtype=torch.bfloat16)
@@ -257,10 +369,44 @@ def attn_case(dev, gen, b, s, tag, softcap=0.0, window=0, reps=50):
             < ctx[:, None, None, None])
     lib_ms = cuda_ms([lambda: F.scaled_dot_product_attention(qd, kd, kd, attn_mask=mask)], reps)
     b_ms, b_by = bound(nbytes, flops)
-    res = dict(case=tag, B=b, S=s, KV=kv, G=g, hd=hd, bs=bs, max_blk=max_blk,
+    case = tag if int4 else f"{tag} {str(pages).removeprefix('torch.')} pages"
+    res = dict(case=case, B=b, S=s, KV=kv, G=g, hd=hd, bs=bs, max_blk=max_blk,
                softcap=softcap, window=window, max_abs_err=err, tol=tol, ok=ok, kernel_ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("kernel_paged_attn_int4", **res)
+    emit("kernel_paged_attn_int4" if int4 else "kernel_paged_attn_bf16", **res)
+    return res
+
+
+def bucketize_case(dev, gen, m, k, tag, reps=100):
+    """The Clustering-Unit kernel, ``torch.equal`` to its plain version, on
+    values that include the boundaries themselves, +-inf and NaN."""
+    import torch
+
+    from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.kernels.bucketize import bucketize_call, bucketize_plain
+    from repro_torch.models.model import _default_codebook
+
+    bounds = boundaries_from_centroids(_default_codebook(4, device=dev)).contiguous()
+
+    def inputs():
+        x = torch.randn((m, k), generator=gen, device=dev) * 2
+        x[0, :5] = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, float("nan")])
+        x[1, :15] = bounds
+        return x.contiguous()
+
+    x = inputs()
+    ok = torch.equal(bucketize_call(x, bounds), bucketize_plain(x, bounds))
+    torch.cuda.synchronize()
+    sets = [inputs() for _ in range(copies_for(m * k * 8))]
+    ms = cuda_ms([lambda t=t: bucketize_call(t, bounds) for t in sets], reps)
+    dev_ms = device_ms([lambda t=t: bucketize_call(t, bounds) for t in sets], reps)
+    plain_ms = cuda_ms([lambda t=t: bucketize_plain(t, bounds) for t in sets[:2]], 10)
+    lib_ms = cuda_ms([lambda t=t: torch.bucketize(t, bounds, right=True) for t in sets], reps)
+    b_ms, b_by = bound(m * k * 8 + 15 * 4, m * k * 15.0)
+    res = dict(case=tag, M=m, K=k, exact=ok, max_abs_err=0.0 if ok else float("inf"), ok=ok,
+               kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    emit("kernel_bucketize", **res)
     return res
 
 
@@ -269,17 +415,18 @@ def phase_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
-    gemm = [
-        gemm_case(dev, gen, ROWS, 2048, 2048, bf, False, "attn/wq,wo bf16"),
-        gemm_case(dev, gen, ROWS, 2048, 512, bf, False, "attn/wk,wv bf16"),
-        gemm_case(dev, gen, ROWS, 2048, 16384, bf, False, "mlp/wi bf16"),
-        gemm_case(dev, gen, ROWS, 8192, 2048, bf, True, "mlp/wd W8 bf16"),
-        gemm_case(dev, gen, ROWS, 2048, 2048, f32, False, "attn/wq f32"),
-        gemm_case(dev, gen, ROWS, 8192, 2048, f32, True, "mlp/wd W8 f32"),
-        gemm_case(dev, gen, 8, 2048, 16384, bf, False, "mlp/wi decode-only bf16"),
-        gemm_case(dev, gen, 5, 11008, 4096, f32, True, "unaligned K=11008 W8 f32"),
-        gemm_case(dev, gen, 37, 1000, 100, bf, False, "unaligned M/K/N nibble bf16"),
+    gemm_shapes = [
+        (ROWS, 2048, 2048, bf, False, "attn/wq,wo bf16"),
+        (ROWS, 2048, 512, bf, False, "attn/wk,wv bf16"),
+        (ROWS, 2048, 16384, bf, False, "mlp/wi bf16"),
+        (ROWS, 8192, 2048, bf, True, "mlp/wd W8 bf16"),
+        (ROWS, 2048, 2048, f32, False, "attn/wq f32"),
+        (ROWS, 8192, 2048, f32, True, "mlp/wd W8 f32"),
+        (8, 2048, 16384, bf, False, "mlp/wi decode-only bf16"),
+        (5, 11008, 4096, f32, True, "unaligned K=11008 W8 f32"),
+        (37, 1000, 100, bf, False, "unaligned M/K/N nibble bf16"),
     ]
+    gemm = [gemm_case(dev, gen, *shape) for shape in gemm_shapes]
     topk = [
         topk_case(dev, gen, ROWS, 2048, 10, "normal"),
         topk_case(dev, gen, ROWS, 8192, 41, "normal"),
@@ -287,13 +434,30 @@ def phase_kernels(dev):
         topk_case(dev, gen, ROWS, 2047, 10, "normal"),
         topk_case(dev, gen, 4, 2048, 10, "equal"),
     ]
-    attn = [
-        attn_case(dev, gen, ROWS, 1, "packed step rows"),
-        attn_case(dev, gen, ROWS, 1, "window=100 softcap=30", softcap=30.0, window=100),
-        attn_case(dev, gen, 18, 4, "segments S=4"),
+    attn = {pages: [attn_case(dev, gen, b, s, tag, pages, softcap=cap, window=win)
+                    for b, s, tag, cap, win in ((ROWS, 1, "packed step rows", 0.0, 0),
+                                                (ROWS, 1, "window=100 softcap=30", 30.0, 100),
+                                                (18, 4, "segments S=4", 0.0, 0))]
+            for pages in ("int4", bf, f32)}
+    streaming = [
+        topk_case(dev, gen, ROWS, n, k, "normal", mul)
+        for mul in (True, False) for n, k in ((2048, 10), (8192, 41))
+    ] + [
+        topk_case(dev, gen, ROWS, 2048, 10, "duplicates", True),
+        topk_case(dev, gen, ROWS, 2047, 10, "normal", False),
+        topk_case(dev, gen, 4, 2048, 10, "equal", True),
     ]
+    index_gemm = [gemm_case(dev, gen, *shape, f"{tag} indices", fused=False)
+                  for *shape, tag in gemm_shapes]
+    bucketize = [
+        bucketize_case(dev, gen, ROWS, 2048, "72x2048 A4"),
+        bucketize_case(dev, gen, ROWS, 8192, "72x8192 A4"),
+    ]
+    # (cases, index of the case whose numbers the kernels line carries)
     return {"fused_lut_gemm": (gemm, 2), "topk_outlier": (topk, 1),
-            "paged_attn_int4": (attn, 0)}
+            "paged_attn_int4": (attn["int4"], 0), "paged_attn_bf16": (attn[bf] + attn[f32], 0),
+            "streaming_quantize_outlier": (streaming, 0), "lut_gemm": (index_gemm, 2),
+            "bucketize": (bucketize, 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +472,20 @@ def main_spec():
                      rules=[("mlp/wd", {"w_bits": 8})], kv_bits=4, kv_dtype="float32")
 
 
-def packed_step_logits(model, params, device, prompts):
+def path_a_spec():
+    """Path A: the same W4A4 + W8 mlp/wd + dynamic outliers, every projection
+    on the plain GEMM route (detection ``auto``), the default float KV pool."""
+    from repro_torch.core.qlinear import QLinearConfig
+    from repro_torch.core.quantspec import QuantSpec
+
+    return QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.005, kernel="jnp"),
+                     rules=[("mlp/wd", {"w_bits": 8})])
+
+
+def packed_step_logits(model, params, device, prompts, kv_dtype=None):
     """One packed prefill step of ``prompts`` (one slot each) -> logits of
-    the valid cells, float32 on the CPU."""
+    the valid cells, float32 on the CPU. The KV pool is int4, or float pages
+    in ``kv_dtype``."""
     import numpy as np
     import torch
 
@@ -319,8 +494,8 @@ def packed_step_logits(model, params, device, prompts):
 
     bs, max_blk = 16, 8
     n = sum(len(p) for p in prompts)
-    pools = model.init_caches(len(prompts), max_blk * bs, quantized=True, block_size=bs,
-                              device=device)
+    pools = model.init_caches(len(prompts), max_blk * bs, kv_dtype or torch.float32,
+                              quantized=kv_dtype is None, block_size=bs, device=device)
     bt = np.full((len(prompts), max_blk), -1, np.int32)
     slot_ids, pos, tok = (np.zeros((n,), np.int32), np.zeros((n, 1), np.int32),
                           np.zeros((n, 1), np.int32))
@@ -351,7 +526,10 @@ def swap_nibbles(model) -> None:
 
 
 def phase_model(dev):
-    """2-layer full-width llama3_2_1b, one packed step, card vs CPU.
+    """2-layer full-width llama3_2_1b, one packed step, card vs CPU, on two
+    paths that share the quantized weights: the fused route (fused LUT-GEMM,
+    top-k, int4 KV pool) and path A (plain GEMM, streaming quantize +
+    detect, bfloat16 KV pool).
 
     A4 activation quantization is discontinuous. A last-ulp difference in a
     per-token RMS scale (reduction order), in a float32 summation order or in
@@ -365,19 +543,24 @@ def phase_model(dev):
     0.1 in float32 and 0.3 in bf16, sit between the growth measured on an
     H100 (see PERF.md) and what a gross fault gives: as a control, the card
     runs each first seed once more with the weight nibbles swapped, and that
-    reading must exceed the bound. A fault that flips only a few indices
-    stays inside these bounds; phase 3 holds the top-k exactly and the
-    LUT-GEMM bit for bit on inputs whose sums are exact.
+    reading must exceed the bound on both paths. A fault that flips only a
+    few indices stays inside these bounds; phase 3 holds the top-k and the
+    streaming kernel exactly and the LUT-GEMMs bit for bit on inputs whose
+    sums are exact. On the card, path A with streaming detection and with
+    plain detection (quantize + stable top-k) must give equal logits: their
+    indices and channels are equal by contract, and the rest is one code.
     """
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.qlinear import QLinear
+    from repro_torch.core.qlinear import QLinear, with_detect_route, with_kernel_route
     from repro_torch.models.model import build, quantize_model
 
     base = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2)
     rel = lambda a, b: (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+    agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()
     bounds = {"float32": 0.1, "bfloat16": 0.3}
+    kv_a = torch.bfloat16  # path A's pool: QuantSpec's default kv_dtype
     seeds = (1, 2, 3)
     res = {}
     for dtype in bounds:
@@ -390,11 +573,16 @@ def phase_model(dev):
             prompts = [torch.randint(0, base.vocab_size, (l,), generator=gen).tolist()
                        for l in (30, 21, 13, 8)]  # 72 cells, like one serving step
             qp = quantize_model(model, model.init(seed=seed, device=dev), main_spec())
+            qa = with_kernel_route(qp, "jnp")  # path A: the same tensors, other routes
             on_card = packed_step_logits(model, qp, dev, prompts)
+            on_card_a = packed_step_logits(model, qa, dev, prompts, kv_a)
+            plain_detect_a = packed_step_logits(model, with_detect_route(qa, "jnp"), dev,
+                                                prompts, kv_a)
             extra = {}
             if seed == seeds[0]:
-                swap_nibbles(qp)
+                swap_nibbles(qp)  # qa shares the packed tensors
                 swapped = packed_step_logits(model, qp, dev, prompts)
+                swapped_a = packed_step_logits(model, qa, dev, prompts, kv_a)
                 swap_nibbles(qp)
                 if dtype == "bfloat16":
                     for m in qp.modules():
@@ -403,51 +591,63 @@ def phase_model(dev):
                                                         detect_kernel="jnp")
                     plain_routes = packed_step_logits(model, qp, dev, prompts)
             on_cpu = packed_step_logits(model, qp.to("cpu"), "cpu", prompts)
+            on_cpu_a = packed_step_logits(model, qa.to("cpu"), "cpu", prompts, kv_a)
             if seed == seeds[0]:
                 extra["nibble_swap_control_rel_l2"] = rel(swapped, on_cpu)
+                extra["path_a_nibble_swap_control_rel_l2"] = rel(swapped_a, on_cpu_a)
                 if dtype == "bfloat16":
                     extra["plain_routes_rel_l2"] = rel(plain_routes, on_cpu)
             runs.append(dict(seed=seed, rel_l2=rel(on_card, on_cpu),
-                             finite=bool(torch.isfinite(on_card).all()),
-                             argmax_agreement=(on_card.argmax(-1) == on_cpu.argmax(-1))
-                             .float().mean().item(), seconds=time.perf_counter() - t0,
-                             **extra))
-            del qp
+                             finite=bool(torch.isfinite(on_card).all()
+                                         and torch.isfinite(on_card_a).all()),
+                             argmax_agreement=agree(on_card, on_cpu),
+                             path_a_rel_l2=rel(on_card_a, on_cpu_a),
+                             path_a_argmax_agreement=agree(on_card_a, on_cpu_a),
+                             path_a_detect_routes_equal=torch.equal(on_card_a, plain_detect_a),
+                             seconds=time.perf_counter() - t0, **extra))
+            del qp, qa
         res[dtype] = runs
-    ok = all(r["finite"] and r["rel_l2"] <= bounds[d] for d, runs in res.items() for r in runs)
-    control = {d: runs[0]["nibble_swap_control_rel_l2"] for d, runs in res.items()}
-    control_ok = all(control[d] > bounds[d] for d in bounds)
+    ok = all(r["finite"] and r["rel_l2"] <= bounds[d] and r["path_a_rel_l2"] <= bounds[d]
+             and r["path_a_detect_routes_equal"] for d, runs in res.items() for r in runs)
+    control_ok = all(runs[0][key] > bounds[d] for d, runs in res.items()
+                     for key in ("nibble_swap_control_rel_l2",
+                                 "path_a_nibble_swap_control_rel_l2"))
     emit("model", layers=base.n_layers, d_model=base.d_model, cells=72, bounds=bounds,
          ok=ok, control_exceeds_bounds=control_ok, **res)
     return ok and control_ok
 
 
-def phase_serve(dev, smi_line):
+def serve_prompts(vocab: int) -> list[list[int]]:
+    """16 seeded prompts of 32-256 tokens; every other one shares a 48-token prefix."""
     import torch
 
-    import repro_torch.core.kernel_routing as kr
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels import build as kb
-    from repro_torch.models.model import build, quantize_model
-    from repro_torch.serving.engine import ServeConfig, ServingEngine
-
-    cfg = get_config("llama3_2_1b")
-    model = build(cfg)
-    t0 = time.perf_counter()
-    params = model.init(seed=0, device=dev)
-    qp = quantize_model(model, params, main_spec())
-    del params
-    torch.cuda.synchronize()
-    ptq_s = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(3)
-    shared = torch.randint(0, cfg.vocab_size, (48,), generator=gen).tolist()
+    shared = torch.randint(0, vocab, (48,), generator=gen).tolist()
     prompts = []
     for i in range(16):
         n = int(torch.randint(32, 257, (1,), generator=gen))
-        tail = torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+        tail = torch.randint(0, vocab, (n,), generator=gen).tolist()
         prompts.append((shared + tail)[:n] if i % 2 else tail)
-    sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
-    engine = ServingEngine(model, qp, sc, batch_slots=8)
+    return prompts
+
+
+def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_line,
+              extra: dict) -> tuple[bool, dict]:
+    """Serve ``serve_prompts`` x 64 new tokens on 8 slots with every count
+    set to 0 first. Passes when each kernel launched exactly ``per_step[k]``
+    times per layer and packed step (every other kernel never), each
+    dispatch route was taken exactly ``routes[r]`` times per layer and step
+    (no fallback), no plain version ran on a CUDA tensor and every request
+    got 64 in-vocabulary tokens. Then a profiled extra run."""
+    import torch
+
+    import repro_torch.core.kernel_routing as kr
+    from repro_torch.kernels import build as kb
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    engine = ServingEngine(model, params, sc, batch_slots=8)
     kb.reset_counts()
     kr.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -457,37 +657,104 @@ def phase_serve(dev, smi_line):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = engine.stats
+    steps = st["packed_steps"]
     launches = {k: kb.LAUNCHES[k] for k in kb.KERNELS}
-    # every step runs every layer: 6 projections (each one LUT-GEMM and one
-    # top-k) and one attention per layer, all on their kernels
-    per_step = {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1}
-    expected = {k: v * cfg.n_layers * st["packed_steps"] for k, v in per_step.items()}
+    expected = {k: per_step.get(k, 0) * cfg.n_layers * steps for k in kb.KERNELS}
+    dispatch = dict(gemm_kernel=kr.kernel_calls(), gemm_plain=kr.jnp_calls(),
+                    gemm_fallbacks=kr.fallback_count(), detect_kernel=kr.detect_kernel_calls(),
+                    detect_plain=kr.detect_jnp_calls(),
+                    detect_fallbacks=kr.detect_fallback_count())
+    expected_dispatch = {r: routes.get(r, 0) * cfg.n_layers * steps for r in dispatch}
     plain = dict(kb.PLAIN_ON_CUDA)
-    plain_routes = dict(gemm=kr.jnp_calls(), detect=kr.detect_jnp_calls(),
-                        gemm_fallbacks=kr.fallback_count(),
-                        detect_fallbacks=kr.detect_fallback_count())
     n_tok = sum(len(o) for o in outs)
     ok = (len(outs) == 16 and all(len(o) == 64 for o in outs)
           and all(0 <= t < cfg.vocab_size for o in outs for t in o)
-          and launches == expected and not any(plain.values())
-          and not any(plain_routes.values()))
-    emit("serve", arch=cfg.arch_id, layers=cfg.n_layers, requests=len(outs),
+          and launches == expected and dispatch == expected_dispatch
+          and not any(plain.values()))
+    emit(phase, arch=cfg.arch_id, layers=cfg.n_layers, requests=len(outs),
          prompt_tokens=sum(len(p) for p in prompts), generated_tokens=n_tok,
-         wall_s=wall, tokens_per_s=n_tok / wall, ptq_s=ptq_s,
-         packed_steps=st["packed_steps"], preemptions=st["preemptions"],
+         wall_s=wall, tokens_per_s=n_tok / wall, ms_per_step=wall / steps * 1e3,
+         packed_steps=steps, preemptions=st["preemptions"],
          prefix_hits=st["prefix_hits"], prefix_hit_tokens=st["prefix_hit_tokens"],
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches, launches_per_step={k: v / st["packed_steps"]
-                                               for k, v in launches.items()},
-         expected_launches=expected, plain_on_cuda=plain, plain_routes=plain_routes,
-         card=smi_line, ok=ok)
-    phase_profile(engine, cfg.vocab_size)
+         launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+         expected_launches=expected, dispatch=dispatch, expected_dispatch=expected_dispatch,
+         plain_on_cuda=plain, card=smi_line, ok=ok, **extra)
+    phase_profile(f"{phase}_profile", engine, cfg.vocab_size)
     return ok, launches
 
 
-def phase_profile(engine, vocab: int) -> None:
+def phase_serve(dev, smi_line):
+    """Phase 5: the fused route (fused LUT-GEMM + top-k kernels, int4 KV)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build, quantize_model
+    from repro_torch.serving.engine import ServeConfig
+
+    model = build(get_config("llama3_2_1b"))
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    qp = quantize_model(model, params, main_spec())
+    del params
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
+    # every step runs every layer: 6 projections (each one LUT-GEMM and one
+    # top-k) and one attention per layer, all on their kernels
+    ok, launches = serve_run(
+        "serve", model, qp, sc, {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1},
+        {"gemm_kernel": 6, "detect_kernel": 6}, smi_line, dict(ptq_s=ptq_s))
+    return ok, launches, model, qp
+
+
+def phase_serve_a(model, qp, smi_line):
+    """Phase 5b, path A: phase 5's quantized weights with every projection on
+    the plain GEMM route (``with_kernel_route(qp, "jnp")``, no second PTQ),
+    detection left on ``auto`` (the streaming kernel on the card), and the
+    default bfloat16 KV pool."""
+    from repro_torch.core.qlinear import with_kernel_route
+    from repro_torch.serving.engine import ServeConfig
+
+    qa = with_kernel_route(qp, "jnp")
+    sc = ServeConfig.from_spec(path_a_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
+    assert not sc.kv_quant and sc.cache_dtype == "bfloat16"
+    # 6 projections per layer: one plain GEMM and one streaming quantize +
+    # detect launch each; one float-page attention per layer
+    return serve_run("serve_a", model, qa, sc,
+                     {"streaming_quantize_outlier": 6, "paged_attn_bf16": 1},
+                     {"gemm_plain": 6, "detect_kernel": 6}, smi_line, {})
+
+
+def phase_quickstart(dev) -> tuple[bool, dict, float]:
+    """Phase 6: the ported quickstart on the card. Its own checks raise; the
+    index LUT-GEMM (step 3, ``ops.lut_gemm``) and the Clustering Unit
+    (``ops.bucketize``) must have launched, and the index kernel's output at
+    the quickstart's shape must lie within its float32 bound of the
+    factorized plain form."""
+    import torch
+
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import build as kb
+
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    got = quickstart.run(*quickstart.inputs(), dev, verbose=False)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    plain = dict(kb.PLAIN_ON_CUDA)
+    ok = (launches.get("lut_gemm", 0) > 0 and launches.get("bucketize", 0) > 0
+          and not any(plain.values()) and got["err_kernel"] <= got["tol_kernel"])
+    emit("quickstart", seconds=time.perf_counter() - t0, err_plain=got["err_plain"],
+         err_oasis=got["err_oasis"], kernel_vs_factorized_err=got["err_kernel"],
+         kernel_vs_factorized_tol=got["tol_kernel"], launches=launches, plain_on_cuda=plain,
+         ok=ok)
+    return ok, launches, got["err_kernel"]
+
+
+def phase_profile(phase: str, engine, vocab: int) -> None:
     """Where a serving step's time goes: ``torch.profiler`` over a short
-    extra run (4 requests, 8 new tokens) on the engine of phase 5."""
+    extra run (4 requests, 8 new tokens) on a serve phase's engine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -506,7 +773,7 @@ def phase_profile(engine, vocab: int) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    emit("profile", wall_s=wall, packed_steps=steps, ms_per_step=wall / steps * 1e3,
+    emit(phase, wall_s=wall, packed_steps=steps, ms_per_step=wall / steps * 1e3,
          device_busy_s=busy_s, device_busy_share=busy_s / wall if rows else None,
          top=[{"op": k, "device_ms": us / 1e3, "calls": c} for us, k, c in rows[:12]])
 
@@ -538,18 +805,32 @@ def main() -> int:
         failures += [f"{name_k}: {c['case']}" for c in cases if not c["ok"]]
     if not phase_model(dev):
         failures.append("model check")
-    ok, launches = phase_serve(dev, smi_line)
+    ok, launches, model, qp = phase_serve(dev, smi_line)
     if not ok:
         failures.append("serve")
+    ok, launches_a = phase_serve_a(model, qp, smi_line)
+    if not ok:
+        failures.append("serve path A")
+    del model, qp
+    ok, launches_qs, qs_err = phase_quickstart(dev)
+    if not ok:
+        failures.append("quickstart")
 
+    # each kernel's launches on the path that runs it
+    path_launches = {**{k: launches[k] for k in ("fused_lut_gemm", "topk_outlier",
+                                                 "paged_attn_int4")},
+                     **{k: launches_a[k] for k in ("streaming_quantize_outlier",
+                                                   "paged_attn_bf16")},
+                     **{k: launches_qs.get(k, 0) for k in ("lut_gemm", "bucketize")}}
+    errs = {k: max(c["max_abs_err"] for c in cases) for k, (cases, _) in results.items()}
+    errs["lut_gemm"] = max(errs["lut_gemm"], qs_err)  # and at its own path's shape
     kernels = []
     for k in kb.KERNELS:
         cases, main_i = results[k]
         rep = cases[main_i]
         kernels.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
-            "replaces": TPU_KERNELS[k], "launches": launches[k],
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "replaces": TPU_KERNELS[k], "launches": path_launches[k], "max_abs_err": errs[k],
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "shape": rep["case"],

@@ -40,11 +40,21 @@ def _sorted_quantiles(xs: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return xs[lo_i] * low_w + xs[hi_i] * high_w
 
 
-def quantile_init(x: torch.Tensor, n_centroids: int) -> torch.Tensor:
-    """Centroids at evenly spaced quantiles of ``x``."""
+def quantile_init(x: torch.Tensor, n_centroids: int,
+                  w: torch.Tensor | None = None) -> torch.Tensor:
+    """Centroids at evenly spaced (weighted) quantiles of ``x``.
+
+    Weighted: sort by value and take the first value whose normalized
+    cumulative weight reaches each quantile, as the JAX package does."""
     x = x.reshape(-1).float()
     qs = (torch.arange(n_centroids, dtype=torch.float32, device=x.device) + 0.5) / n_centroids
-    return _sorted_quantiles(torch.sort(x).values, qs)
+    if w is None:
+        return _sorted_quantiles(torch.sort(x).values, qs)
+    xs, order = torch.sort(x, stable=True)
+    cw = torch.cumsum(w.reshape(-1).float()[order], dim=0)
+    cw = cw / torch.clamp(cw[-1], min=1e-30)
+    pos = torch.searchsorted(cw, qs)
+    return xs[pos.clamp(0, x.shape[0] - 1)]
 
 
 def boundaries_from_centroids(centroids: torch.Tensor) -> torch.Tensor:
@@ -58,22 +68,26 @@ def assign_via_boundaries(x: torch.Tensor, sorted_centroids: torch.Tensor) -> to
     return torch.searchsorted(b, x.contiguous(), right=True).int()
 
 
-def kmeans_fit(x: torch.Tensor, n_centroids: int, iters: int = 25) -> torch.Tensor:
+def kmeans_fit(x: torch.Tensor, n_centroids: int, w: torch.Tensor | None = None,
+               iters: int = 25) -> torch.Tensor:
     """Sorted float32 1-D K-Means codebook of ``n_centroids`` entries.
 
-    Lloyd's algorithm from the quantile initialisation; an empty cluster
-    keeps its previous centroid. Cluster sums accumulate in float64, so the
-    order a device's atomics add in moves a centroid by far less than a
-    float32 ulp. (Fisher-weighted fitting belongs to calibration, which is
-    not ported yet.)
+    Lloyd's algorithm from the (weighted) quantile initialisation; an empty
+    cluster keeps its previous centroid. ``w`` holds per-sample (Fisher)
+    weights, clamped at 1e-12 as in JAX. Cluster sums accumulate in
+    float64, so the order a device's atomics add in moves a centroid by far
+    less than a float32 ulp.
     """
     xf = x.reshape(-1).float()
-    c = torch.sort(quantile_init(xf, n_centroids)).values
     x64 = xf.double()
+    wf = None if w is None else torch.clamp(w.reshape(-1).float(), min=1e-12)
+    w64 = None if wf is None else wf.double()  # None: plain counts, exact in float64
+    c = torch.sort(quantile_init(xf, n_centroids, wf)).values
     for _ in range(iters):
         idx = assign_via_boundaries(xf, c).long()
-        count = torch.bincount(idx, minlength=n_centroids).double()
-        total = torch.bincount(idx, weights=x64, minlength=n_centroids)
-        new = torch.where(count > 0, (total / count.clamp(min=1)).float(), c)
+        wsum = torch.bincount(idx, weights=w64, minlength=n_centroids).double()
+        wx = torch.bincount(idx, weights=x64 if w64 is None else w64 * x64,
+                            minlength=n_centroids)
+        new = torch.where(wsum > 0, (wx / wsum.clamp(min=1e-30)).float(), c)
         c = torch.sort(new).values
     return c

@@ -29,6 +29,7 @@ __all__ = [
     "stable_topk",
     "detect_outliers_topk",
     "detect_outliers_static",
+    "static_thresholds",
     "outlier_residuals",
     "outlier_residuals_direct",
     "compensate_gather",
@@ -73,6 +74,16 @@ def detect_outliers_static(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     sv, si = stable_topk(score, 2 * k, largest=True)
     values = torch.gather(x, -1, si.long()).float()
     return OutlierSet(values=values, channels=si, mask=(sv > 0).float())
+
+
+def static_thresholds(calib_x: torch.Tensor, frac: float = 0.005):
+    """OASIS-S: scalar (lo, hi) thresholds, the ``frac`` and ``1 - frac``
+    quantiles ('linear') over all calibration activations. Sorts and
+    interpolates itself: ``torch.quantile`` refuses inputs this large."""
+    flat = torch.sort(calib_x.reshape(-1).float()).values
+    qs = torch.tensor([frac, 1.0 - frac], dtype=torch.float32, device=flat.device)
+    lo, hi = cb._sorted_quantiles(flat, qs)
+    return lo, hi
 
 
 def outlier_residuals(out: OutlierSet, qa: QuantizedActivation) -> torch.Tensor:

@@ -7,24 +7,24 @@
 The main branch routes by ``QLinearConfig.kernel``: the ``pallas`` route runs
 the fused quantize + LUT-GEMM kernel (activation indices never leave the
 tile), ``jnp`` quantizes and runs the factorized product. Dynamic detection
-routes by ``detect_kernel`` to the Orizuru dual top-k kernel or a stable
-sort. On the fused route the residuals are recomputed from the gathered
-outlier values (``outlier_residuals_direct``), so no activation index
-matrix is ever materialised.
+routes by ``detect_kernel`` to the Orizuru kernels or a stable sort: beside
+the fused GEMM the detection-only dual top-k kernel, beside the plain GEMM
+the streaming kernel, which quantizes and detects in one read of the
+activations. On the fused route the residuals are recomputed from the
+gathered outlier values (``outlier_residuals_direct``), so no activation
+index matrix is ever materialised.
 
 Where the JAX package demotes a kernel route to plain code (activation
 codebooks above 16 entries, a kernel detection route under static
 detection) the port does the same on CPU tensors only; on the card those
-configurations raise ``NotImplementedError``, as does the plain GEMM route
-with kernel detection, which JAX serves with a streaming quantize + detect
-kernel that is not ported yet. On CPU tensors that combination quantizes
-with the plain code and detects with the detection-only kernel's plain
-version, which selects the same indices and channels.
+two configurations raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 import math
 from typing import Literal
 
@@ -36,7 +36,8 @@ import repro_torch.core.outlier as ol
 import repro_torch.core.quantize as qz
 from repro_torch.core.lut_gemm import lut_gemm as _lut_gemm_plain
 
-__all__ = ["QLinearConfig", "QLinearParams", "QLinear", "qlinear_apply"]
+__all__ = ["QLinearConfig", "QLinearParams", "QLinear", "qlinear_apply", "quantize_linear",
+           "with_kernel_route", "with_detect_route"]
 
 Detection = Literal["dynamic", "static", "static_dense", "none"]
 CompMode = Literal["auto", "gather", "scatter"]
@@ -126,6 +127,46 @@ class QLinear(nn.Module):
         return f"K={k}, N={n}, w_bits={self.qw_nbits}, a_bits={self.cfg.a_bits}"
 
 
+def quantize_linear(w: torch.Tensor, calib_acts: torch.Tensor, cfg: QLinearConfig,
+                    bias: torch.Tensor | None = None,
+                    fisher: torch.Tensor | None = None) -> QLinearParams:
+    """PTQ of one ``(K, N)`` linear layer: weight K-Means plus an activation
+    codebook fit on ``calib_acts`` (tokens, K), Fisher-weighted if given."""
+    cfg.validate()
+    qw = qz.quantize_weight(w, nbits=cfg.w_bits, method=cfg.method)
+    book = qz.fit_activation_codebook(calib_acts, nbits=cfg.a_bits, fisher=fisher,
+                                      scale_mode=cfg.scale_mode, method=cfg.method)
+    thr_lo = thr_hi = None
+    if cfg.detection in ("static", "static_dense"):
+        thr_lo, thr_hi = ol.static_thresholds(calib_acts, cfg.outlier_frac)
+    return QLinearParams(qw=qw, act_codebook=book, bias=bias, thr_lo=thr_lo,
+                         thr_hi=thr_hi, cfg=cfg)
+
+
+def _with_cfg(params, **change):
+    """A copy of a QLinearParams or of a module tree whose QLinear configs
+    take ``change``; tensors are shared, not copied."""
+    if isinstance(params, QLinearParams):
+        return dataclasses.replace(params, cfg=dataclasses.replace(params.cfg, **change))
+    shared = itertools.chain(params.parameters(), params.buffers())
+    out = copy.deepcopy(params, memo={id(t): t for t in shared})
+    for m in out.modules():
+        if isinstance(m, QLinear):
+            m.cfg = dataclasses.replace(m.cfg, **change)
+    return out
+
+
+def with_kernel_route(params, kernel: KernelRoute):
+    """``params`` with every GEMM route set to ``kernel`` and nothing
+    re-quantized, so outputs stay comparable across routes."""
+    return _with_cfg(params, kernel=kernel)
+
+
+def with_detect_route(params, detect_kernel: KernelRoute):
+    """``params`` with every detection route set to ``detect_kernel``."""
+    return _with_cfg(params, detect_kernel=detect_kernel)
+
+
 def _tokens(x: torch.Tensor) -> int:
     return math.prod(x.shape[:-1]) if x.ndim > 1 else 1
 
@@ -164,9 +205,6 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
         k_out = ol.num_outliers(x.shape[-1], cfg.outlier_frac)
         if cfg.detection == "dynamic":
             detect_route = kr.resolve_detect_route(cfg.detect_kernel, x.device)
-            if detect_route == "pallas" and route == "jnp" and a_nbits <= 4:
-                _no_kernel(x, tier, "the plain GEMM route with kernel detection runs "
-                                    "the streaming quantize + detect kernel")
             kr.record_detect_dispatch(tier, detect_route)
         else:
             detect_route = "jnp"
@@ -181,13 +219,21 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
 
     # ---- main branch: LUT-GEMM over all activations ------------------------
     qa = None
+    outs = None
     if route == "pallas":
         from repro_torch.kernels import ops as kops
 
         y = kops.lut_gemm_fused(x, p.act_codebook, p.qw, scale_mode=cfg.scale_mode,
                                 out_dtype=cfg.compute_dtype)
     else:
-        qa = qz.quantize_activation(x, p.act_codebook, cfg.scale_mode)
+        if detect_route == "pallas" and cfg.detection == "dynamic" and a_nbits <= 4:
+            from repro_torch.kernels import ops as kops
+
+            # the streaming kernel: indices and outlier set from one read
+            qa, outs = kops.quantize_outlier_streaming(x, p.act_codebook, k_out,
+                                                       cfg.scale_mode)
+        else:
+            qa = qz.quantize_activation(x, p.act_codebook, cfg.scale_mode)
         y = _lut_gemm_plain(qa, p.qw, out_dtype=cfg.compute_dtype,
                             compute_dtype=cfg.compute_dtype)
 
@@ -202,14 +248,15 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
         w = p.qw.dequantize_rows().to(cfg.compute_dtype)
         y = y + r @ w
     elif cfg.detection != "none" and cfg.outlier_frac > 0:
-        if cfg.detection == "dynamic" and detect_route == "pallas":
-            from repro_torch.kernels import ops as kops
+        if outs is None:  # else the streaming kernel detected them
+            if cfg.detection == "dynamic" and detect_route == "pallas":
+                from repro_torch.kernels import ops as kops
 
-            outs = kops.topk_outlier(x.float(), k_out)
-        elif cfg.detection == "dynamic":
-            outs = ol.detect_outliers_topk(x.float(), k_out)
-        else:
-            outs = ol.detect_outliers_static(x.float(), p.thr_lo, p.thr_hi, k_out)
+                outs = kops.topk_outlier(x.float(), k_out)
+            elif cfg.detection == "dynamic":
+                outs = ol.detect_outliers_topk(x.float(), k_out)
+            else:
+                outs = ol.detect_outliers_static(x.float(), p.thr_lo, p.thr_hi, k_out)
         if qa is None:
             r = ol.outlier_residuals_direct(outs, qz.token_scale(x, cfg.scale_mode),
                                             p.act_codebook, mul_form=mul_form)

@@ -25,6 +25,7 @@ __all__ = [
     "token_scale",
     "quantize_activation",
     "dequantize_activation",
+    "fit_activation_codebook",
 ]
 
 ScaleMode = Literal["rms", "absmax"]
@@ -81,6 +82,19 @@ class QuantizedWeight:
     def dequantize_rows(self, rows: torch.Tensor | None = None) -> torch.Tensor:
         """float32 ``codebook[idx] * scale`` for all rows or the given ones."""
         return self.centroids(rows) * self.scale
+
+    @property
+    def indices(self) -> torch.Tensor:
+        """Unpacked int32 index matrix, shape ``(K, N)``."""
+        if self.nbits <= 4:
+            return unpack_int4(self.packed)
+        return self.packed.int()
+
+    def hbm_bytes(self) -> int:
+        """Bytes of the stored form: indices, codebook and channel scales."""
+        k, n = self.shape
+        idx_bytes = k * n // 2 if self.nbits <= 4 else k * n
+        return idx_bytes + self.codebook.numel() * 4 + n * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,3 +176,19 @@ def quantize_activation(x: torch.Tensor, codebook: torch.Tensor,
 
 def dequantize_activation(qa: QuantizedActivation, dtype=torch.float32) -> torch.Tensor:
     return (qa.codebook[qa.idx.long()] * qa.scale).to(dtype)
+
+
+def fit_activation_codebook(samples: torch.Tensor, nbits: int = 4,
+                            fisher: torch.Tensor | None = None,
+                            scale_mode: ScaleMode = "rms", iters: int = 25,
+                            method: str = "kmeans") -> torch.Tensor:
+    """Offline activation codebook from (tokens, K) calibration activations,
+    fit in per-token-normalised space; ``fisher`` (same shape) weights the
+    K-Means. ``method="uniform"`` gives the evenly spaced baseline grid."""
+    s = token_scale(samples, scale_mode)
+    xn = (samples / s).float()
+    if method == "uniform":
+        lim = torch.amax(xn.abs()).item()
+        return torch.linspace(-lim, lim, 2**nbits, device=xn.device)
+    w = None if fisher is None else fisher.float()
+    return cb.kmeans_fit(xn, 2**nbits, w=w, iters=iters)

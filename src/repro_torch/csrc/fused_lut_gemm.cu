@@ -20,21 +20,15 @@
 // result matches the plain float32 version to summation order. This is the
 // parity route: a tensor-core tier is a separate, later route.
 //
-// Tiling: a 256-thread block owns a 32 x 64 output tile and walks K in steps of
-// 32. Each step stages the bucketized + looked-up activation tile and the
-// dequantized weight tile in shared memory; each thread accumulates 2 x 4
-// outputs in registers. Ragged M, N and K are masked to zero (K = 11008 works).
+// Tiling, weight tiers and masking: lut_gemm_tile.cuh.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "lut_gemm_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
+using lut_tile::THREADS;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -49,105 +43,33 @@ fused_lut_gemm_kernel(const XT* __restrict__ x, const float* __restrict__ scale,
   __shared__ float s_bounds[16];
   __shared__ float s_abook[16];
   __shared__ float s_wbook[256];
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
   if (tid < n_bounds) s_bounds[tid] = bounds[tid];
   if (tid <= n_bounds) s_abook[tid] = a_book[tid];
   for (int i = tid; i < n_w; i += THREADS) s_wbook[i] = w_book[i];
 
-  const int tx = tid % 16;  // output columns tx + 16 * j
-  const int ty = tid / 16;  // output rows ty + 16 * i
-  float acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  __syncthreads();
-
-  const int half_n = N / 2;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // activation tile: bucketize, look up the centroid, store transposed
-#pragma unroll
-    for (int q = 0; q < (BM * BK) / THREADS; ++q) {
-      const int e = tid + q * THREADS;
-      const int r = e / BK, kk = e % BK;
-      const int row = m0 + r, col = k0 + kk;
-      float a = 0.f;
-      if (row < M && col < K) {
-        const float xv = to_float(x[(size_t)row * K + col]);
-        const float s = scale[row];
-        int idx = 0;
-        if (MUL_FORM) {
-          for (int i = 0; i < n_bounds; ++i) idx += (xv >= s * s_bounds[i]) ? 1 : 0;
-        } else {
-          const float xn = xv / s;
-          for (int i = 0; i < n_bounds; ++i) idx += (xn >= s_bounds[i]) ? 1 : 0;
-        }
-        a = s_abook[idx];
-      }
-      As[kk][r] = a;
-    }
-    // weight tile: unpack indices, look up the centroid
-    if (BYTE) {
-#pragma unroll
-      for (int q = 0; q < (BK * BN) / THREADS; ++q) {
-        const int e = tid + q * THREADS;
-        const int kk = e / BN, c = e % BN;
-        const int k = k0 + kk, n = n0 + c;
-        Bs[kk][c] = (k < K && n < N) ? s_wbook[w[(size_t)k * N + n]] : 0.f;
-      }
+  // bucketize one activation and look up its centroid
+  auto a_at = [&](int row, int col) {
+    const float xv = to_float(x[(size_t)row * K + col]);
+    const float s = scale[row];
+    int idx = 0;
+    if (MUL_FORM) {
+      for (int i = 0; i < n_bounds; ++i) idx += (xv >= s * s_bounds[i]) ? 1 : 0;
     } else {
-#pragma unroll
-      for (int q = 0; q < (BK * BN / 2) / THREADS; ++q) {
-        const int e = tid + q * THREADS;
-        const int kk = e / (BN / 2), cb = e % (BN / 2);
-        const int k = k0 + kk, n = n0 + 2 * cb;
-        float lo = 0.f, hi = 0.f;
-        if (k < K && n < N) {
-          const uint8_t byte = w[(size_t)k * half_n + n / 2];
-          lo = s_wbook[byte & 0xF];
-          hi = s_wbook[byte >> 4];
-        }
-        Bs[kk][2 * cb] = lo;
-        Bs[kk][2 * cb + 1] = hi;
-      }
+      const float xn = xv / s;
+      for (int i = 0; i < n_bounds; ++i) idx += (xn >= s_bounds[i]) ? 1 : 0;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a0 = As[kk][ty];
-      const float a1 = As[kk][ty + 16];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float b = Bs[kk][tx + 16 * j];
-        acc[0][j] = fmaf(a0, b, acc[0][j]);
-        acc[1][j] = fmaf(a1, b, acc[1][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) y[(size_t)row * N + col] = acc[i][j];
-    }
-  }
+    return s_abook[idx];
+  };
+  lut_tile::tiles<BYTE>(a_at, w, s_wbook, y, M, N, K);
 }
 
 template <typename XT, bool MUL_FORM, bool BYTE>
 void launch(const void* x, const void* scale, const void* w, const void* bounds,
             int n_bounds, const void* a_book, const void* w_book, int n_w, void* y,
             int M, int N, int K, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_lut_gemm_kernel<XT, MUL_FORM, BYTE><<<grid, THREADS, 0, stream>>>(
+  fused_lut_gemm_kernel<XT, MUL_FORM, BYTE><<<lut_tile::grid(M, N), THREADS, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const float*>(scale),
       static_cast<const uint8_t*>(w), static_cast<const float*>(bounds), n_bounds,
       static_cast<const float*>(a_book), static_cast<const float*>(w_book), n_w,

@@ -27,7 +27,8 @@ from collections import Counter
 __all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "reset_counts", "build_all",
            "library", "build_dir", "check"]
 
-KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4")
+KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4", "paged_attn_bf16",
+           "streaming_quantize_outlier", "lut_gemm", "bucketize")
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
 

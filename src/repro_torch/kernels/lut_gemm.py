@@ -1,9 +1,17 @@
-"""Fused quantize + LUT-GEMM: CUDA kernel wrapper and its plain version.
+"""The LUT-GEMM kernels: CUDA kernel wrappers and their plain versions.
 
-Replaces ``repro/kernels/lut_gemm.py::fused_lut_gemm_kernel_call``. The kernel
-is ``repro_torch/csrc/fused_lut_gemm.cu``; :func:`fused_lut_gemm_plain` is the
-port of ``repro/kernels/ref.py::fused_lut_gemm_ref``. Both return the
-UNSCALED (M, N) float32 product; the caller applies ``s * qw.scale``.
+* :func:`fused_lut_gemm` replaces
+  ``repro/kernels/lut_gemm.py::fused_lut_gemm_kernel_call`` (kernel
+  ``repro_torch/csrc/fused_lut_gemm.cu``): raw activations in, bucketized in
+  the tile. :func:`fused_lut_gemm_plain` is the port of
+  ``repro/kernels/ref.py::fused_lut_gemm_ref``.
+* :func:`lut_gemm` replaces ``repro/kernels/lut_gemm.py::lut_gemm_kernel_call``
+  (kernel ``repro_torch/csrc/lut_gemm.cu``): precomputed activation indices
+  in. :func:`lut_gemm_plain` is the port of ``ref.lut_gemm_ref`` and
+  ``ref.lut_gemm_byte_ref``.
+
+All return the UNSCALED (M, N) float32 product; the caller applies the
+per-token and per-channel scales.
 """
 
 from __future__ import annotations
@@ -12,11 +20,15 @@ import ctypes
 
 import torch
 
+from repro_torch.core.quantize import bucketize_mul_form
 from repro_torch.kernels import build
+from repro_torch.kernels.bucketize import rank
 
-__all__ = ["fused_lut_gemm", "fused_lut_gemm_plain", "bucketize_plain", "exact_sum_inputs"]
+__all__ = ["fused_lut_gemm", "fused_lut_gemm_plain", "lut_gemm", "lut_gemm_plain",
+           "exact_sum_inputs"]
 
 NAME = "fused_lut_gemm"
+INDEX = "lut_gemm"
 _UP, _DOWN = torch.tensor(float("inf")), torch.tensor(float("-inf"))
 
 
@@ -78,21 +90,8 @@ def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: 
     return x.contiguous(), s.contiguous(), w, bounds, a_book, w_book
 
 
-def bucketize_plain(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
-    """``searchsorted(boundaries, x, side='right')`` as int32."""
-    return torch.searchsorted(boundaries.contiguous(), x.contiguous(), right=True).int()
-
-
-def fused_lut_gemm_plain(x, scale, w_packed, boundaries, a_book, w_book, *,
-                         byte_packed: bool = False, mul_form: bool = False) -> torch.Tensor:
-    """Quantize-then-index-GEMM with the kernel's exact index selection."""
-    if x.is_cuda:
-        build.PLAIN_ON_CUDA[NAME] += 1
-    xf = x.float()
-    if mul_form:
-        a_idx = (xf[..., None] >= scale[..., None] * boundaries).sum(-1)
-    else:
-        a_idx = bucketize_plain(xf / scale, boundaries)
+def _index_product(a_idx, w_packed, a_book, w_book, byte_packed: bool) -> torch.Tensor:
+    """``aBook[aIdx] @ wBook[wIdx]`` in float32."""
     if byte_packed:
         w_idx = w_packed.long()
     else:
@@ -103,15 +102,35 @@ def fused_lut_gemm_plain(x, scale, w_packed, boundaries, a_book, w_book, *,
     return a @ w
 
 
-def _require(cond: bool, msg: str) -> None:
+def lut_gemm_plain(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False) -> torch.Tensor:
+    """The index GEMM over precomputed activation indices."""
+    if a_idx.is_cuda:
+        build.PLAIN_ON_CUDA[INDEX] += 1
+    return _index_product(a_idx, w_packed, a_book, w_book, byte_packed)
+
+
+def fused_lut_gemm_plain(x, scale, w_packed, boundaries, a_book, w_book, *,
+                         byte_packed: bool = False, mul_form: bool = False) -> torch.Tensor:
+    """Quantize-then-index-GEMM with the kernel's exact index selection."""
+    if x.is_cuda:
+        build.PLAIN_ON_CUDA[NAME] += 1
+    if mul_form:
+        a_idx = bucketize_mul_form(x, scale, boundaries, dtype=torch.int32)
+    else:
+        a_idx = rank(x.float() / scale, boundaries)
+    return _index_product(a_idx, w_packed, a_book, w_book, byte_packed)
+
+
+def _require(cond: bool, msg: str, name: str = NAME) -> None:
     if not cond:
-        raise ValueError(f"{NAME}: {msg}")
+        raise ValueError(f"{name}: {msg}")
 
 
 def fused_lut_gemm(x, scale, w_packed, boundaries, a_book, w_book, *,
                    byte_packed: bool = False, mul_form: bool = False) -> torch.Tensor:
     """x (M, K) float32|bfloat16, scale (M, 1) float32, w_packed (K, N/2) or
     (K, N) uint8, boundaries (2^a - 1,), a_book (2^a,), w_book (2^w,) float32.
+    A NaN activation gets index 0 in both compare forms (``kernels.bucketize``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -147,4 +166,40 @@ def fused_lut_gemm(x, scale, w_packed, boundaries, a_book, w_book, *,
              y.data_ptr(), m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
+    return y
+
+
+def lut_gemm(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False) -> torch.Tensor:
+    """a_idx (M, K) int32 in [0, 2^a), w_packed (K, N/2) or (K, N) uint8,
+    a_book (2^a,) with a <= 8, w_book (2^w,) float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    m, k = a_idx.shape
+    n = w_packed.shape[1] * (1 if byte_packed else 2)
+    req = lambda cond, msg: _require(cond, msg, INDEX)
+    req(a_idx.dtype == torch.int32, f"a_idx must be int32, got {a_idx.dtype}")
+    req(w_packed.dtype == torch.uint8 and w_packed.shape[0] == k,
+        f"w_packed must be uint8 with K={k} rows, got {w_packed.dtype} {tuple(w_packed.shape)}")
+    req(a_book.dim() == 1 and 1 <= a_book.shape[0] <= 256,
+        "activation codebook must have 1 to 256 entries")
+    req(1 <= w_book.shape[0] <= (256 if byte_packed else 16),
+        "weight codebook must have <= 16 (nibble) or <= 256 (byte) entries")
+    tensors = (a_idx, w_packed, a_book, w_book)
+    req(all(t.device == a_idx.device for t in tensors), "inputs must share one device")
+    req(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    req(all(t.dtype == torch.float32 for t in (a_book, w_book)), "codebooks must be float32")
+    if a_idx.device.type == "cpu":
+        return lut_gemm_plain(a_idx, w_packed, a_book, w_book, byte_packed=byte_packed)
+    req(a_idx.is_cuda, f"unsupported device {a_idx.device}")
+    y = torch.empty((m, n), dtype=torch.float32, device=a_idx.device)
+    fn = build.library(INDEX).lut_gemm
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, p, i, p, i, p, i, i, i, p]
+    err = fn(a_idx.data_ptr(), w_packed.data_ptr(), int(byte_packed), a_book.data_ptr(),
+             a_book.shape[0], w_book.data_ptr(), w_book.shape[0], y.data_ptr(), m, n, k,
+             torch.cuda.current_stream(a_idx.device).cuda_stream)
+    build.check(err, INDEX)
+    build.LAUNCHES[INDEX] += 1
     return y

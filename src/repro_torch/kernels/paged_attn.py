@@ -1,17 +1,21 @@
-"""Paged attention over the int4 KV pool: CUDA kernel wrapper and plain version.
+"""Paged attention over the KV pool: CUDA kernel wrappers and plain versions.
 
-Replaces the int4 variant of ``repro/kernels/paged_attn.py::paged_attn_kernel_call``.
-The kernel is ``repro_torch/csrc/paged_attn_int4.cu``;
-:func:`paged_attn_quant_plain` is the port of
-``repro/kernels/ref.py::paged_attn_quant_ref``. Layouts are the JAX ones:
-q (B, S, KV, G, hd); pools (n_blocks, bs, KV, hd/2) uint8 and
-(n_blocks, bs, KV, 1) float32; tables (B, max_blk) int32 (< 0 = unallocated);
-ctx_lens (B,) and q_pos (B, S) int32 (< 0 = padded row). Output float32 in
-q's shape. Rows that see no valid key are finite but meaningless in both
-versions (the plain one averages every gathered value, the kernel every
-value it read) and are discarded by callers.
+Replaces both variants of ``repro/kernels/paged_attn.py::paged_attn_kernel_call``:
 
-The bf16-page variant of the TPU kernel is not ported yet.
+* int4 K-Means pages: :func:`paged_attn_int4` (kernel
+  ``repro_torch/csrc/paged_attn_int4.cu``), plain version
+  :func:`paged_attn_quant_plain`, the port of ``ref.paged_attn_quant_ref``;
+  pools (n_blocks, bs, KV, hd/2) uint8 and (n_blocks, bs, KV, 1) float32.
+* float pages: :func:`paged_attn_bf16` (kernel
+  ``repro_torch/csrc/paged_attn_bf16.cu``), plain version
+  :func:`paged_attn_plain`, the port of ``ref.paged_attn_ref``; pools
+  (n_blocks, bs, KV, hd) bfloat16 or float32, as the TPU kernel takes them.
+
+Layouts are the JAX ones: q (B, S, KV, G, hd) float32; tables (B, max_blk)
+int32 (< 0 = unallocated); ctx_lens (B,) and q_pos (B, S) int32 (< 0 =
+padded row). Output float32 in q's shape. Rows that see no valid key are
+finite but meaningless in both versions (the plain one averages every
+gathered value, the kernel every value it read) and are discarded by callers.
 """
 
 from __future__ import annotations
@@ -22,15 +26,32 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["paged_attn_int4", "paged_attn_quant_plain"]
+__all__ = ["paged_attn_int4", "paged_attn_quant_plain", "paged_attn_bf16", "paged_attn_plain"]
 
 NAME = "paged_attn_int4"
+FLOAT = "paged_attn_bf16"
 _NEG_INF = torch.finfo(torch.float32).min
 
 
 def _deq(idx: torch.Tensor, scale: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     full = torch.stack([idx & 0xF, idx >> 4], dim=-1).reshape(*idx.shape[:-1], -1)
     return codebook[full.long()] * scale
+
+
+def _attend_gathered(q, gk, gv, ctx_lens, q_pos, softcap: float, window: int) -> torch.Tensor:
+    """q (B, S, KV, G, hd) against gathered float32 keys / values
+    (B, max_blk * bs, KV, hd), with the causal, context and window masks."""
+    k_pos = torch.arange(gk.shape[1], dtype=torch.int32, device=q.device)
+    s = torch.einsum("bskgh,btkh->bkgst", q.float(), gk) * (q.shape[-1] ** -0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = (k_pos[None, None, :] < ctx_lens[:, None, None]) & (
+        k_pos[None, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        valid &= k_pos[None, None, :] > q_pos[:, :, None] - window
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,btkh->bskgh", p, gv)
 
 
 def paged_attn_quant_plain(q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables,
@@ -45,29 +66,44 @@ def paged_attn_quant_plain(q, k_idx, k_scale, v_idx, v_scale, codebook, block_ta
     gk = _deq(k_idx[bt], k_scale[bt], codebook).reshape(b, -1, k_idx.shape[2],
                                                         2 * k_idx.shape[3])
     gv = _deq(v_idx[bt], v_scale[bt], codebook).reshape(gk.shape)
-    k_pos = torch.arange(gk.shape[1], dtype=torch.int32, device=q.device)
-    s = torch.einsum("bskgh,btkh->bkgst", q.float(), gk) * (q.shape[-1] ** -0.5)
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
-    valid = (k_pos[None, None, :] < ctx_lens[:, None, None]) & (
-        k_pos[None, None, :] <= q_pos[:, :, None])
-    if window > 0:
-        valid &= k_pos[None, None, :] > q_pos[:, :, None] - window
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, _NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgst,btkh->bskgh", p, gv)
+    return _attend_gathered(q, gk, gv, ctx_lens, q_pos, softcap, window)
 
 
-def _require(cond: bool, msg: str) -> None:
+def paged_attn_plain(q, pages_k, pages_v, block_tables, ctx_lens, q_pos, *,
+                     softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Gather the float blocks of each row, widen to float32, attend with masks."""
+    if q.is_cuda:
+        build.PLAIN_ON_CUDA[FLOAT] += 1
+    n_blocks = pages_k.shape[0]
+    bt = block_tables.long().clamp(0, n_blocks - 1)
+    b = bt.shape[0]
+    gk = pages_k[bt].reshape(b, -1, *pages_k.shape[2:]).float()
+    gv = pages_v[bt].reshape(b, -1, *pages_v.shape[2:]).float()
+    return _attend_gathered(q, gk, gv, ctx_lens, q_pos, softcap, window)
+
+
+def _require(cond: bool, msg: str, name: str = NAME) -> None:
     if not cond:
-        raise ValueError(f"{NAME}: {msg}")
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check_query(name: str, q, block_tables, ctx_lens, q_pos) -> None:
+    _require(q.dim() == 5 and q.dtype == torch.float32,
+             f"q must be float32 (B, S, KV, G, hd), got {q.dtype} {tuple(q.shape)}", name)
+    b, s = q.shape[:2]
+    _require(block_tables.dim() == 2 and block_tables.shape[0] == b
+             and block_tables.dtype == torch.int32, "block_tables must be int32 (B, max_blk)",
+             name)
+    _require(tuple(ctx_lens.shape) == (b,) and ctx_lens.dtype == torch.int32,
+             "ctx_lens must be int32 (B,)", name)
+    _require(tuple(q_pos.shape) == (b, s) and q_pos.dtype == torch.int32,
+             "q_pos must be int32 (B, S)", name)
 
 
 def paged_attn_int4(q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables, ctx_lens,
                     q_pos, *, softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    _require(q.dim() == 5 and q.dtype == torch.float32,
-             f"q must be float32 (B, S, KV, G, hd), got {q.dtype} {tuple(q.shape)}")
+    _check_query(NAME, q, block_tables, ctx_lens, q_pos)
     b, s, kv, g, hd = q.shape
     n_blocks, bs = k_idx.shape[0], k_idx.shape[1]
     _require(hd % 2 == 0 and hd <= 256, f"head_dim {hd} must be even and <= 256")
@@ -78,12 +114,6 @@ def paged_attn_int4(q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables, c
                  f"pool array {t.dtype} {tuple(t.shape)} != {dt} {(*pool, last)}")
     _require(tuple(codebook.shape) == (16,) and codebook.dtype == torch.float32,
              "codebook must be float32 (16,)")
-    _require(block_tables.dim() == 2 and block_tables.shape[0] == b
-             and block_tables.dtype == torch.int32, "block_tables must be int32 (B, max_blk)")
-    _require(tuple(ctx_lens.shape) == (b,) and ctx_lens.dtype == torch.int32,
-             "ctx_lens must be int32 (B,)")
-    _require(tuple(q_pos.shape) == (b, s) and q_pos.dtype == torch.int32,
-             "q_pos must be int32 (B, S)")
     tensors = (q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables, ctx_lens, q_pos)
     _require(all(t.device == q.device for t in tensors), "inputs must share one device")
     _require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
@@ -104,4 +134,40 @@ def paged_attn_int4(q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables, c
              float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
+    return out
+
+
+def paged_attn_bf16(q, pages_k, pages_v, block_tables, ctx_lens, q_pos, *,
+                    softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Float pages (bfloat16 or float32). CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    _check_query(FLOAT, q, block_tables, ctx_lens, q_pos)
+    b, s, kv, g, hd = q.shape
+    n_blocks, bs = pages_k.shape[0], pages_k.shape[1]
+    _require(hd <= 256, f"head_dim {hd} must be <= 256", FLOAT)
+    _require(pages_k.dtype in (torch.bfloat16, torch.float32), f"page dtype {pages_k.dtype}",
+             FLOAT)
+    for t in (pages_k, pages_v):
+        _require(tuple(t.shape) == (n_blocks, bs, kv, hd) and t.dtype == pages_k.dtype,
+                 f"pool array {t.dtype} {tuple(t.shape)} != {pages_k.dtype} "
+                 f"{(n_blocks, bs, kv, hd)}", FLOAT)
+    tensors = (q, pages_k, pages_v, block_tables, ctx_lens, q_pos)
+    _require(all(t.device == q.device for t in tensors), "inputs must share one device", FLOAT)
+    _require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous", FLOAT)
+    if q.device.type == "cpu":
+        return paged_attn_plain(q, pages_k, pages_v, block_tables, ctx_lens, q_pos,
+                                softcap=softcap, window=window)
+    _require(q.is_cuda, f"unsupported device {q.device}", FLOAT)
+    out = torch.empty_like(q)
+    fn = build.library(FLOAT).paged_attn_bf16
+    fn.restype = ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, i, p, p, p, p] + [i] * 8 + [f, i, f, p]
+    err = fn(q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+             int(pages_k.dtype == torch.bfloat16), block_tables.data_ptr(), ctx_lens.data_ptr(),
+             q_pos.data_ptr(), out.data_ptr(), b, s, kv, g, hd, n_blocks, bs,
+             block_tables.shape[1], float(softcap), int(window), float(hd ** -0.5),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, FLOAT)
+    build.LAUNCHES[FLOAT] += 1
     return out

@@ -1,9 +1,18 @@
-"""Orizuru dual top-k: CUDA kernel wrapper and its plain version.
+"""Orizuru detection kernels: CUDA kernel wrappers and their plain versions.
 
-Replaces ``repro/kernels/topk_outlier.py::topk_outlier_kernel_call``. The
-kernel is ``repro_torch/csrc/topk_outlier.cu``; :func:`topk_outlier_plain` is
-the port of ``repro/kernels/ref.py::topk_outlier_ref``, with a stable sort so
-that ties go to the lowest channel as ``lax.top_k`` orders them.
+* :func:`topk_outlier_call` replaces
+  ``repro/kernels/topk_outlier.py::topk_outlier_kernel_call`` (kernel
+  ``repro_torch/csrc/topk_outlier.cu``); :func:`topk_outlier_plain` is the
+  port of ``repro/kernels/ref.py::topk_outlier_ref``.
+* :func:`streaming_quantize_outlier_call` replaces
+  ``streaming_quantize_outlier_kernel_call`` (kernel
+  ``repro_torch/csrc/streaming_quantize_outlier.cu``): the activation indices
+  and the dual top-k from one read of each row;
+  :func:`streaming_quantize_outlier_plain` is the port of
+  ``ref.streaming_quantize_outlier_ref``.
+
+The plain versions sort stably, so ties go to the lowest channel as
+``lax.top_k`` orders them.
 """
 
 from __future__ import annotations
@@ -12,22 +21,44 @@ import ctypes
 
 import torch
 
+from repro_torch.core.quantize import bucketize_mul_form
 from repro_torch.kernels import build
+from repro_torch.kernels.bucketize import rank
 
-__all__ = ["topk_outlier_call", "topk_outlier_plain"]
+__all__ = ["topk_outlier_call", "topk_outlier_plain", "streaming_quantize_outlier_call",
+           "streaming_quantize_outlier_plain"]
 
 NAME = "topk_outlier"
+STREAMING = "streaming_quantize_outlier"
+
+
+def _dual_topk(x: torch.Tensor, k: int):
+    if not 1 <= k <= x.shape[-1]:
+        raise ValueError(f"k={k} must be in [1, N={x.shape[-1]}]")
+    hv, hi = torch.sort(x, dim=-1, descending=True, stable=True)
+    lv, li = torch.sort(x, dim=-1, stable=True)
+    return hv[..., :k], hi[..., :k].int(), lv[..., :k], li[..., :k].int()
 
 
 def topk_outlier_plain(x: torch.Tensor, k: int):
     """(hi_vals desc, hi_idx, lo_vals asc, lo_idx), each (M, k)."""
     if x.is_cuda:
         build.PLAIN_ON_CUDA[NAME] += 1
-    if not 1 <= k <= x.shape[-1]:
-        raise ValueError(f"k={k} must be in [1, N={x.shape[-1]}]")
-    hv, hi = torch.sort(x, dim=-1, descending=True, stable=True)
-    lv, li = torch.sort(x, dim=-1, stable=True)
-    return hv[..., :k], hi[..., :k].int(), lv[..., :k], li[..., :k].int()
+    return _dual_topk(x, k)
+
+
+def streaming_quantize_outlier_plain(x: torch.Tensor, scale: torch.Tensor,
+                                     boundaries: torch.Tensor, k: int, *,
+                                     mul_form: bool = False):
+    """(idx int32 (M, N), hi_vals desc, hi_idx, lo_vals asc, lo_idx): the
+    indices in the compare form ``mul_form`` selects, the top-k of raw x."""
+    if x.is_cuda:
+        build.PLAIN_ON_CUDA[STREAMING] += 1
+    if mul_form:
+        idx = bucketize_mul_form(x, scale, boundaries, dtype=torch.int32)
+    else:
+        idx = rank(x / scale, boundaries)
+    return (idx, *_dual_topk(x, k))
 
 
 def topk_outlier_call(x: torch.Tensor, k: int):
@@ -58,3 +89,47 @@ def topk_outlier_call(x: torch.Tensor, k: int):
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return hv, hi, lv, li
+
+
+def streaming_quantize_outlier_call(x: torch.Tensor, scale: torch.Tensor,
+                                    boundaries: torch.Tensor, k: int, *,
+                                    mul_form: bool = False):
+    """x (M, N) float32, scale (M, 1) float32, boundaries (<= 15,) float32.
+    A NaN gets index 0 in both compare forms (``kernels.bucketize``).
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{STREAMING}: x must be a contiguous (M, N) float32 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    m, n = x.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must be in [1, N={n}]")
+    if tuple(scale.shape) != (m, 1) or scale.dtype != torch.float32:
+        raise ValueError(f"{STREAMING}: scale must be float32 ({m}, 1), got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    nb = boundaries.shape[0]
+    if boundaries.dim() != 1 or not 1 <= nb <= 15 or boundaries.dtype != torch.float32:
+        raise ValueError(f"{STREAMING}: boundaries must be 1 to 15 float32 values (a_bits <= 4)")
+    tensors = (x, scale, boundaries)
+    if not all(t.device == x.device and t.is_contiguous() for t in tensors):
+        raise ValueError(f"{STREAMING}: inputs must be contiguous on one device")
+    if x.device.type == "cpu":
+        return streaming_quantize_outlier_plain(x, scale, boundaries, k, mul_form=mul_form)
+    if not x.is_cuda:
+        raise ValueError(f"{STREAMING}: unsupported device {x.device}")
+    if n * 5 > 227 * 1024:
+        raise ValueError(f"{STREAMING}: a row of N={n} does not fit in shared memory")
+    idx = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    hv = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    lv = torch.empty_like(hv)
+    hi = torch.empty((m, k), dtype=torch.int32, device=x.device)
+    li = torch.empty_like(hi)
+    fn = build.library(STREAMING).streaming_quantize_outlier
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+    err = fn(x.data_ptr(), scale.data_ptr(), boundaries.data_ptr(), nb, int(mul_form), m, n, k,
+             idx.data_ptr(), hv.data_ptr(), hi.data_ptr(), lv.data_ptr(), li.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, STREAMING)
+    build.LAUNCHES[STREAMING] += 1
+    return idx, hv, hi, lv, li

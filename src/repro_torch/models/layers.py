@@ -3,11 +3,12 @@
 Every projection is either a :class:`Dense` (float weight ``(K, N)``) or a
 :class:`~repro_torch.core.qlinear.QLinear`; :func:`dense_apply` calls either.
 Attention is ported on two branches: no cache (training / full-sequence
-logits) and the paged int4 KV pool of the serving scheduler, where
-``_paged_write`` stores this call's keys and values and ``_paged_attend``
-runs the paged-attention kernel wrapper. The pools are updated in place
-(``index_copy_``): PyTorch tensors are mutable, and a functional copy of a
-full-width pool per layer per step would double its memory traffic.
+logits) and the paged KV pool of the serving scheduler -- int4 K-Means or
+float (bfloat16 / float32) pages -- where ``_paged_write`` stores this call's
+keys and values and ``_paged_attend`` runs the pool's paged-attention kernel
+wrapper. The pools are updated in place (``index_copy_``): PyTorch tensors
+are mutable, and a functional copy of a full-width pool per layer per step
+would double its memory traffic.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch import nn
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.quantize import pack_int4
-from repro_torch.kernels.paged_attn import paged_attn_int4
+from repro_torch.kernels.paged_attn import paged_attn_bf16, paged_attn_int4
 
 __all__ = [
     "Dense",
@@ -111,19 +112,23 @@ def _sdpa_dense(q, k, v, q_pos, k_pos, window: int, softcap: float) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# paged int4 KV pool
+# paged KV pool
 # ---------------------------------------------------------------------------
 
-def init_paged_kv_cache(cfg, n_blocks: int, block_size: int, quantized: bool = True,
+def init_paged_kv_cache(cfg, n_blocks: int, block_size: int, dtype=torch.bfloat16,
+                        quantized: bool = False,
                         device: torch.device | str = "cpu") -> dict:
-    """One layer's slice of the global block pool (int4 K-Means blocks)."""
+    """One layer's slice of the global block pool: ``pages_k`` / ``pages_v``
+    (n_blocks, block_size, KV, hd) in ``dtype`` (a torch dtype or its name),
+    or with ``quantized`` int4 K-Means blocks with per-(token, head) scales."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
     if not quantized:
-        raise NotImplementedError(
-            "float KV pools wait for the port of the bf16 paged-attention kernel; "
-            "serve with kv_bits=4")
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        shape = (n_blocks, block_size, kv, hd)
+        return {"pages_k": torch.zeros(shape, dtype=dt, device=device),
+                "pages_v": torch.zeros(shape, dtype=dt, device=device)}
     from repro_torch.models.model import _default_codebook
 
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
     u8 = dict(dtype=torch.uint8, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -149,17 +154,22 @@ def _paged_write(cache: dict, k, v, positions, ctx_lens) -> dict:
     A token is written iff ``0 <= position < ctx_lens[b]`` and its table
     entry is allocated; the others (padding, idle rows) are filtered out
     before the copy, as JAX drops them with an out-of-bounds index."""
-    pages = cache["pages_k_idx"]
+    quantized = "pages_k_idx" in cache
+    pages = cache["pages_k_idx"] if quantized else cache["pages_k"]
     n_blocks, bs = pages.shape[0], pages.shape[1]
     bt = cache["block_tables"]
     blk = torch.clamp(positions // bs, 0, bt.shape[1] - 1).long()
     block_id = torch.gather(bt, 1, blk)
     valid = (positions >= 0) & (positions < ctx_lens[:, None]) & (block_id >= 0)
     dest = (block_id.long() * bs + positions % bs)[valid]
-    ki, ks = _kv_quantize(k, cache["kv_codebook"])
-    vi, vs = _kv_quantize(v, cache["kv_codebook"])
-    for key, vals in (("pages_k_idx", ki), ("pages_v_idx", vi),
-                      ("pages_k_scale", ks), ("pages_v_scale", vs)):
+    if quantized:
+        ki, ks = _kv_quantize(k, cache["kv_codebook"])
+        vi, vs = _kv_quantize(v, cache["kv_codebook"])
+        writes = (("pages_k_idx", ki), ("pages_v_idx", vi),
+                  ("pages_k_scale", ks), ("pages_v_scale", vs))
+    else:
+        writes = (("pages_k", k.to(pages.dtype)), ("pages_v", v.to(pages.dtype)))
+    for key, vals in writes:
         pool = cache[key]
         flat = pool.view(n_blocks * bs, *pool.shape[2:])
         flat.index_copy_(0, dest, vals[valid])
@@ -168,11 +178,15 @@ def _paged_write(cache: dict, k, v, positions, ctx_lens) -> dict:
 
 def _paged_attend(cache: dict, q, q_pos, softcap: float, window: int = 0) -> torch.Tensor:
     """Attention against the block pool through the block table."""
-    o = paged_attn_int4(
-        q.float().contiguous(), cache["pages_k_idx"], cache["pages_k_scale"],
-        cache["pages_v_idx"], cache["pages_v_scale"], cache["kv_codebook"],
-        cache["block_tables"].contiguous(), cache["ctx_lens"], q_pos.int().contiguous(),
-        softcap=softcap, window=window)
+    qf, qp = q.float().contiguous(), q_pos.int().contiguous()
+    bt = cache["block_tables"].contiguous()
+    if "pages_k_idx" in cache:
+        o = paged_attn_int4(qf, cache["pages_k_idx"], cache["pages_k_scale"],
+                            cache["pages_v_idx"], cache["pages_v_scale"], cache["kv_codebook"],
+                            bt, cache["ctx_lens"], qp, softcap=softcap, window=window)
+    else:
+        o = paged_attn_bf16(qf, cache["pages_k"], cache["pages_v"], bt, cache["ctx_lens"], qp,
+                            softcap=softcap, window=window)
     return o.to(q.dtype)
 
 

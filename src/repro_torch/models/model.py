@@ -31,7 +31,7 @@ from repro_torch.models import transformer
 from repro_torch.models.gaussian_codebooks import GAUSSIAN_CENTROIDS
 
 __all__ = ["Model", "ModelOutput", "build", "head_matrix", "quantize_model",
-           "quantize_params", "params_from_numpy", "params_from_tree"]
+           "quantize_params", "params_from_numpy", "params_from_tree", "tree_from_params"]
 
 _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wi", "wd"}
 
@@ -50,10 +50,11 @@ class Model:
         """Seeded random parameters on ``device`` (default: the card)."""
         return transformer.init(self.cfg, seed, resolve_device(device))
 
-    def init_caches(self, batch: int, cache_len: int, quantized: bool = True,
-                    block_size: int = 16, n_blocks: int = 0, device=None) -> list[dict]:
-        return transformer.init_caches(self.cfg, batch, cache_len, quantized, block_size,
-                                       n_blocks, resolve_device(device))
+    def init_caches(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                    quantized: bool = False, block_size: int = 16, n_blocks: int = 0,
+                    device=None) -> list[dict]:
+        return transformer.init_caches(self.cfg, batch, cache_len, dtype, quantized,
+                                       block_size, n_blocks, resolve_device(device))
 
     def cache_policies(self):
         return transformer.cache_policies(self.cfg)
@@ -182,6 +183,45 @@ def params_from_tree(tree: dict, cfg: ModelConfig) -> transformer.TransformerLM:
     head = _proj(tree["head"]) if "head" in tree else None
     return transformer.TransformerLM(cfg, tree["embed"]["table"], blocks,
                                      tree["norm_f"]["scale"], head)
+
+
+def _proj_tree(p: nn.Module):
+    if isinstance(p, QLinear):
+        return p.params
+    return {"w": p.w.data} if p.b is None else {"w": p.w.data, "b": p.b.data}
+
+
+def _stack(trees: list):
+    """Per-layer trees -> one tree with a leading layer axis (JAX's scan layout)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, QLinearParams):
+        opt = lambda f: None if getattr(first, f) is None else torch.stack(
+            [getattr(t, f) for t in trees])
+        qw = QuantizedWeight(packed=torch.stack([t.qw.packed for t in trees]),
+                             codebook=torch.stack([t.qw.codebook for t in trees]),
+                             scale=torch.stack([t.qw.scale for t in trees]),
+                             shape=first.qw.shape, nbits=first.qw.nbits)
+        return QLinearParams(qw=qw, act_codebook=torch.stack([t.act_codebook for t in trees]),
+                             bias=opt("bias"), thr_lo=opt("thr_lo"), thr_hi=opt("thr_hi"),
+                             cfg=first.cfg)
+    return torch.stack(trees)
+
+
+def tree_from_params(params: transformer.TransformerLM) -> dict:
+    """The inverse of :func:`params_from_tree`: the JAX-layout tree of the
+    port's model, with the layers stacked when its config scans them."""
+    blocks = [{"attn": {k: _proj_tree(getattr(b.attn, k)) for k in ("wq", "wk", "wv", "wo")},
+               "mlp": {k: _proj_tree(getattr(b.mlp, k)) for k in ("wi", "wd")},
+               "norm1": {"scale": b.norm1.data}, "norm2": {"scale": b.norm2.data}}
+              for b in params.blocks]
+    tree = {"embed": {"table": params.embed.data},
+            "blocks": _stack(blocks) if params.cfg.scan_layers else blocks,
+            "norm_f": {"scale": params.norm_f.data}}
+    if params.head is not None:
+        tree["head"] = _proj_tree(params.head)
+    return tree
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> transformer.TransformerLM:

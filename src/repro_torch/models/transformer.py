@@ -111,13 +111,15 @@ def apply(params: TransformerLM, cfg: ModelConfig, tokens, *, positions=None, ca
     return params(tokens, positions=positions, caches=caches, last_only=last_only)
 
 
-def init_caches(cfg: ModelConfig, batch: int, cache_len: int, quantized: bool = True,
-                block_size: int = 16, n_blocks: int = 0, device="cpu") -> list[dict]:
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+                quantized: bool = False, block_size: int = 16, n_blocks: int = 0,
+                device="cpu") -> list[dict]:
     """Per-layer slices of the global paged pool (``batch * ceil(cache_len /
-    block_size)`` blocks when ``n_blocks`` is 0). The ring layout waits."""
+    block_size)`` blocks when ``n_blocks`` is 0): float pages in ``dtype``, or
+    int4 K-Means pages with ``quantized``. The ring layout waits."""
     if n_blocks <= 0:
         n_blocks = batch * -(-cache_len // block_size)
-    return [L.init_paged_kv_cache(cfg, n_blocks, block_size, quantized, device)
+    return [L.init_paged_kv_cache(cfg, n_blocks, block_size, dtype, quantized, device)
             for _ in range(cfg.n_layers)]
 
 

@@ -2,9 +2,10 @@
 (port of ``repro/serving/engine.py``).
 
 ``ServingEngine(model, params, sc)`` serves on the device that holds
-``params``; the scheduler owns the int4 block pool and runs one packed
-step per iteration. The fixed-slot ring-buffer fallback, speculation and
-telemetry are not ported yet.
+``params``; the scheduler owns the block pool -- float pages in
+``cache_dtype``, or int4 K-Means pages with ``kv_quant`` -- and runs one
+packed step per iteration. The fixed-slot ring-buffer fallback, speculation
+and telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,9 +43,6 @@ class ServingEngine:
     """Batched greedy generation over ``batch_slots`` request slots."""
 
     def __init__(self, model, params, sc: ServeConfig, batch_slots: int = 8):
-        if not sc.kv_quant:
-            raise NotImplementedError(
-                "float KV pools wait for the bf16 paged-attention kernel; serve with kv_bits=4")
         self.model, self.params, self.sc, self.slots = model, params, sc, batch_slots
         self.scheduler = Scheduler(model, params, sc, slots=batch_slots)
 

@@ -1,9 +1,11 @@
 """Paged K-Means KV cache: block pool helpers and the host-side allocator
 (port of ``repro/serving/paged_cache.py``).
 
-Per attention layer the pool holds ``pages_k_idx`` / ``pages_v_idx``
-(n_blocks, block_size, KV, hd/2) uint8, ``pages_k_scale`` / ``pages_v_scale``
-(n_blocks, block_size, KV, 1) float32 and the 16-entry ``kv_codebook``.
+Per attention layer the pool holds float pages ``pages_k`` / ``pages_v``
+(n_blocks, block_size, KV, hd) in the cache dtype, or int4 K-Means pages:
+``pages_k_idx`` / ``pages_v_idx`` (n_blocks, block_size, KV, hd/2) uint8,
+``pages_k_scale`` / ``pages_v_scale`` (n_blocks, block_size, KV, 1) float32
+and the 16-entry ``kv_codebook``.
 Token position ``p`` of a request lives at ``(table[p // block_size],
 p % block_size)``. Tables and context lengths are attached per call
 (``attach_tables``) and stripped afterwards (``detach_tables``).
@@ -191,7 +193,7 @@ def copy_blocks(pools: list[dict], src, dst) -> list[dict]:
     """Copy-on-write primitive: pool rows ``src[i]`` overwrite rows ``dst[i]``
     in every layer's ``pages_*`` arrays, in place."""
     for layer in pools:
-        dev = layer["pages_k_idx"].device
+        dev = next(v.device for k, v in layer.items() if k.startswith("pages_"))
         s = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
         t = torch.as_tensor(np.asarray(dst), dtype=torch.long, device=dev)
         for k, v in layer.items():

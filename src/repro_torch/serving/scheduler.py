@@ -1,4 +1,4 @@
-"""Continuous-batching scheduler over the paged int4 KV pool
+"""Continuous-batching scheduler over the paged KV pool
 (port of ``repro/serving/scheduler.py``).
 
 Request lifecycle::
@@ -120,9 +120,9 @@ class Scheduler:
         n_blocks = sc.n_blocks or slots * max_blk
         self.pcfg = PagedCacheConfig(block_size=sc.block_size, n_blocks=n_blocks,
                                      max_blocks_per_seq=max_blk)
-        self.pools = model.init_caches(slots, sc.cache_len, quantized=sc.kv_quant,
-                                       block_size=sc.block_size, n_blocks=n_blocks,
-                                       device=self.device)
+        self.pools = model.init_caches(slots, sc.cache_len, sc.cache_dtype,
+                                       quantized=sc.kv_quant, block_size=sc.block_size,
+                                       n_blocks=n_blocks, device=self.device)
         self.allocator = BlockAllocator(n_blocks, prefix_cache=sc.prefix_cache)
         self._hash_seed = prefix_seed(
             family=model.cfg.family, n_layers=model.cfg.n_layers,

@@ -112,3 +112,143 @@ def test_paged_attn_kernel_vs_plain(dev, b, s, softcap, window):
     # convex combinations of values summed in two orders: 4 n u max|v|
     assert (out - ref).abs()[live].max().item() <= 4 * max_blk * bs * U32 * vmax
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("page_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,softcap,window", [(72, 1, 0.0, 0), (9, 4, 20.0, 40)])
+def test_paged_attn_float_kernel_vs_plain(dev, b, s, softcap, window, page_dtype):
+    from repro_torch.kernels.paged_attn import paged_attn_bf16, paged_attn_plain
+
+    kv, grp, hd, bs, max_blk, nb = 8, 4, 64, 16, 16, 128
+    g = torch.Generator(device=dev).manual_seed(b + s)
+    dt = getattr(torch, page_dtype)
+    pk = torch.randn((nb, bs, kv, hd), generator=g, device=dev).to(dt)
+    pv = torch.randn((nb, bs, kv, hd), generator=g, device=dev).to(dt)
+    q = torch.randn((b, s, kv, grp, hd), generator=g, device=dev)
+    ctx = torch.randint(1, max_blk * bs + 1, (b,), generator=g, device=dev)
+    ctx[-1] = 0
+    tables = torch.randint(0, nb, (b, max_blk), generator=g, device=dev)
+    ar = torch.arange(max_blk, device=dev)
+    tables[ar[None, :] >= ((ctx + bs - 1) // bs)[:, None]] = -1
+    qpos = (ctx[:, None] - s + torch.arange(s, device=dev)[None, :]).clamp(min=-1)
+    qpos[ctx == 0] = -1
+    args = (q, pk, pv, tables.int(), ctx.int(), qpos.int().contiguous())
+    out = paged_attn_bf16(*args, softcap=softcap, window=window)
+    ref = paged_attn_plain(*args, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    live = qpos >= 0
+    vmax = pv.float().abs().max().item()
+    # convex combinations of values summed in two orders: 4 n u max|v|
+    assert (out - ref).abs()[live].max().item() <= 4 * max_blk * bs * U32 * vmax
+    assert torch.isfinite(out).all()
+
+
+def _rows(kind, m, n, g, dev):
+    if kind == "normal":
+        return torch.randn((m, n), generator=g, device=dev) * 2
+    if kind == "duplicates":
+        return torch.randint(-3, 4, (m, n), generator=g, device=dev).float()
+    x = torch.full((m, n), 0.5, device=dev)  # all-equal rows, one with +-inf
+    x[0, 3], x[0, 7] = float("inf"), float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("mul_form", [False, True])
+@pytest.mark.parametrize("m,n,k,kind", [
+    (72, 2048, 10, "normal"), (72, 8192, 41, "normal"), (72, 2047, 10, "normal"),
+    (16, 2048, 10, "duplicates"), (4, 512, 7, "equal"),
+])
+def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
+    from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.kernels import build
+    from repro_torch.kernels.topk_outlier import (streaming_quantize_outlier_call,
+                                                  streaming_quantize_outlier_plain)
+    from repro_torch.models.model import _default_codebook
+
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    x = _rows(kind, m, n, g, dev)
+    if mul_form:  # the mul form serves bfloat16 activations
+        x = x.to(torch.bfloat16).float()
+    s = x.square().mean(-1, keepdim=True).sqrt().clamp(min=1e-12)
+    s = torch.where(torch.isfinite(s), s, torch.ones_like(s))
+    bounds = boundaries_from_centroids(_default_codebook(4, device=dev)).contiguous()
+    launches = build.LAUNCHES["streaming_quantize_outlier"]
+    got = streaming_quantize_outlier_call(x, s, bounds, k, mul_form=mul_form)
+    want = streaming_quantize_outlier_plain(x, s, bounds, k, mul_form=mul_form)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["streaming_quantize_outlier"] == launches + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,k,n,byte", [
+    (72, 2048, 512, False), (72, 8192, 2048, True), (5, 1000, 100, False), (3, 1100, 40, True),
+])
+def test_index_lut_gemm_kernel_vs_plain(dev, m, k, n, byte):
+    from repro_torch.kernels.bucketize import bucketize_call
+    from repro_torch.kernels.lut_gemm import (exact_sum_inputs, fused_lut_gemm, lut_gemm,
+                                              lut_gemm_plain)
+    from repro_torch.models.model import _default_codebook
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a_book = _default_codebook(4, device=dev)
+    w_book = torch.sort(torch.randn(256 if byte else 16, generator=g, device=dev)).values
+    a_idx = torch.randint(0, 16, (m, k), generator=g, device=dev, dtype=torch.int32)
+    w = torch.randint(0, 256, (k, n if byte else n // 2), generator=g, device=dev,
+                      dtype=torch.uint8)
+    y = lut_gemm(a_idx, w, a_book, w_book, byte_packed=byte)
+    ref = lut_gemm_plain(a_idx, w, a_book, w_book, byte_packed=byte)
+    torch.cuda.synchronize()
+    bound = 2 * k**0.5 * U32 * (a_book.abs().max() * w_book.abs().max() * k).item()
+    assert (y - ref).abs().max().item() <= bound
+    # exact sums: bucketize kernel -> index kernel equals the fused kernel bit for bit
+    x, s, wx, bounds, ab, wb = [t.to(dev) for t in exact_sum_inputs(m, k, n, torch.float32,
+                                                                     byte, seed=k)]
+    idx = bucketize_call((x / s).contiguous(), bounds)
+    unfused = lut_gemm(idx, wx, ab, wb, byte_packed=byte)
+    assert torch.equal(unfused, lut_gemm_plain(idx, wx, ab, wb, byte_packed=byte))
+    assert torch.equal(unfused, fused_lut_gemm(x, s, wx, bounds, ab, wb, byte_packed=byte))
+
+
+@pytest.mark.parametrize("m,k,nb", [(72, 2048, 15), (72, 8192, 15), (7, 1001, 255)])
+def test_bucketize_kernel_vs_plain_exact(dev, m, k, nb):
+    from repro_torch.kernels.bucketize import bucketize_call, bucketize_plain
+
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = torch.randn((m, k), generator=g, device=dev) * 2
+    x[0, :5] = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, float("nan")])
+    bounds = torch.sort(torch.randn(nb, generator=g, device=dev)).values
+    x[1, : nb] = bounds  # on the boundaries: x >= b counts them
+    assert torch.equal(bucketize_call(x, bounds), bucketize_plain(x, bounds))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "float32"])
+def test_float_pools_and_plain_gemm_route_serve_on_the_card(dev, kv_dtype):
+    """QuantSpec() defaults (float KV pools) with every projection on the
+    plain GEMM route: the streaming and float-attention kernels carry it,
+    with no plain version on a CUDA tensor, and the tokens equal those of the
+    same engine with plain detection (the selections are equal by contract;
+    everything else is the same code)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.qlinear import QLinearConfig, with_detect_route
+    from repro_torch.core.quantspec import QuantSpec
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build as build_model
+    from repro_torch.models.model import quantize_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    cfg = get_smoke_config("llama3_2_1b")
+    model = build_model(cfg)
+    spec = QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.05, kernel="jnp"),
+                     kv_dtype=kv_dtype)
+    qp = quantize_model(model, model.init(seed=0, device=dev), spec)
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], list(range(20, 40))]
+    sc = ServeConfig.from_spec(spec, cache_len=64, block_size=8, prefill_chunk=8)
+    build.reset_counts()
+    got = ServingEngine(model, qp, sc, batch_slots=2).generate(prompts, max_new_tokens=6)
+    assert build.LAUNCHES["streaming_quantize_outlier"] > 0
+    assert build.LAUNCHES["paged_attn_bf16"] > 0
+    assert not any(build.PLAIN_ON_CUDA.values())
+    plain = with_detect_route(qp, "jnp")
+    want = ServingEngine(model, plain, sc, batch_slots=2).generate(prompts, max_new_tokens=6)
+    assert got == want

@@ -158,12 +158,13 @@ def test_static_detection_with_pallas_detect_route_is_counted_fallback():
 @pytest.mark.parametrize("overrides", [
     dict(a_bits=5, detection="dynamic", kernel="pallas"),
     dict(detection="static", detect_kernel="pallas", kernel="jnp"),
-    dict(detection="dynamic", kernel="jnp", detect_kernel="pallas"),
+    dict(detection="static_dense", kernel="pallas", detect_kernel="pallas"),
 ])
 def test_unported_kernel_paths_raise_off_the_cpu(overrides):
     """The demotions above happen on CPU tensors only: off the CPU (here a
-    meta tensor, on the card a CUDA tensor) a path whose kernel is not
-    ported raises instead of running plain code, and counts nothing."""
+    meta tensor, on the card a CUDA tensor) a path that has no kernel
+    (a_bits > 4 on the fused route, kernel detection under static
+    thresholds) raises instead of running plain code, and counts nothing."""
     p = to_port(_layer(JCfg(**overrides), seed=4))
     kr.reset()
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):

@@ -193,8 +193,8 @@ def test_engine_refuses_what_is_not_ported(artifact):
     with pytest.raises(NotImplementedError, match="temperature"):
         ServingEngine(art.model, art.params,
                       ServeConfig.from_spec(art.spec, cache_len=64, temperature=0.7))
-    with pytest.raises(NotImplementedError, match="kv_bits=4"):
-        ServingEngine(art.model, art.params, ServeConfig(cache_len=64))
+    float_pools = ServingEngine(art.model, art.params, ServeConfig(cache_len=64)).scheduler.pools
+    assert float_pools[0]["pages_k"].dtype == torch.bfloat16  # QuantSpec() defaults now serve
     sc = ServeConfig.from_spec(art.spec, cache_len=64)
     assert sc.kv_quant and sc.cache_dtype == "float32"
     eng = ServingEngine(art.model, art.params, sc, batch_slots=2)
