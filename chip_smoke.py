@@ -6,13 +6,16 @@ Phases, each printing one JSON line:
 1. device  -- the card's name and count, and what ``nvidia-smi`` reports.
 2. build   -- compiles the seven CUDA kernels from ``src/repro_torch/csrc``,
               one ``nvcc`` per source, all at once.
+   build_lut -- the two LUT-GEMM kernels' registers, shared memory and
+              spills per instantiation, from ptxas.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               llama3_2_1b's serving shapes (72 token rows = 8 decode slots +
-              a 64-token prefill chunk), with times, bounds and yardsticks
-              (the top-k, streaming and bucketize kernels also with their
-              device time under the profiler); both LUT-GEMMs also bit for
-              bit on inputs with exact sums, where bucketize + index GEMM
-              must equal the fused kernel.
+              a 64-token prefill chunk) and a 1024-row prefill for the
+              LUT-GEMMs, with times, bounds and yardsticks (the LUT-GEMM,
+              top-k, streaming and bucketize kernels also with their device
+              time under the profiler); both LUT-GEMMs also bit for bit on
+              inputs with exact sums, where bucketize + index GEMM must equal
+              the fused kernel, and bit for bit between two launches.
 4. model   -- a 2-layer, full-width llama3_2_1b: one packed serving step on
               the card against the same step on the CPU (plain versions),
               for three seeds, on the fused route (int4 KV) and on path A
@@ -52,6 +55,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 U32 = 2.0**-24  # float32 unit roundoff
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 TPU_KERNELS = {
     "fused_lut_gemm": "src/repro/kernels/lut_gemm.py:241",
     "topk_outlier": "src/repro/kernels/topk_outlier.py:195",
@@ -117,9 +121,32 @@ def copies_for(nbytes: int) -> int:
     return max(1, min(32, math.ceil(120e6 / max(nbytes, 1))))
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, shared memory and spills per entry function of a
+    ``-Xptxas -v`` build log."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +179,11 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
     boundaries. There, as a control, the fused kernel run with the other
     compare form must differ; and the unfused pipeline -- the bucketize
     kernel (division form) or the mul-form indices (bfloat16), then the
-    index kernel -- must equal the fused kernel bit for bit."""
+    index kernel -- must equal the fused kernel bit for bit. Two launches on
+    the same inputs must give the same bits (the split-K sums its partials in
+    a fixed order). Bounds: the float32 one of the CUDA-core design
+    (operations at 67 TFLOP/s) and the 3xTF32 one of the tensor-core design
+    (three products per term at 495 TFLOP/s)."""
     import torch
 
     from repro_torch.core.codebook import boundaries_from_centroids
@@ -185,6 +216,7 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
 
     args = inputs()
     y, ref = kern(args), plain(args)
+    repeat_equal = torch.equal(kern(args), y)
     a_idx = act_indices(args[0], args[1], bounds, mul_form) if fused else args[0]
     w = args[-1]
     w_idx = w.long() if byte_packed else torch.stack([w & 0xF, w >> 4], -1).reshape(k, -1).long()
@@ -213,21 +245,28 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
                           ex_idx, wx, ab, wb, byte_packed=byte_packed)),
                       unfused_equals_fused=torch.equal(unfused, fused_ex))
         checked = all(checks.values())
-    ok = bool(torch.isfinite(y).all()) and err <= tol < flip and checked
+    ok = bool(torch.isfinite(y).all()) and err <= tol < flip and checked and repeat_equal
     in_bytes = sum(t.numel() * t.element_size() for t in args)
     nbytes = in_bytes + 4 * ((15 if fused else 0) + 16 + n_w) + m * n * 4
     sets = [inputs() for _ in range(copies_for(in_bytes))]
-    ms = cuda_ms([lambda t=t: kern(t) for t in sets], reps)
+    kern_fns = [lambda t=t: kern(t) for t in sets]
+    ms = cuda_ms(kern_fns, reps)
+    dev_ms = device_ms(kern_fns, reps)
     plain_ms = cuda_ms([lambda t=t: plain(t) for t in sets[:2]], 5)
     # yardstick only: bf16 tensor-core matmul against a pre-dequantized weight
     wd = w_deq.to(torch.bfloat16)
     xd = [torch.randn((m, k), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3)]
-    lib_ms = cuda_ms([lambda t=t: torch.matmul(t, wd) for t in xd], reps)
+    lib_fns = [lambda t=t: torch.matmul(t, wd) for t in xd]
+    lib_ms = cuda_ms(lib_fns, reps)
+    lib_dev_ms = device_ms(lib_fns, reps)
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+    tc_ms, tc_by = bound(nbytes, 3 * 2.0 * m * n * k, TF32_FLOPS)
     res = dict(case=tag, M=m, K=k, N=n, x_dtype=str(x_dtype).removeprefix("torch."),
                tier="byte" if byte_packed else "nibble", max_abs_err=err, tol=tol,
-               one_flip=flip, **checks, ok=ok, kernel_ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+               one_flip=flip, **checks, repeat_equal=repeat_equal, ok=ok, kernel_ms=ms,
+               kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_3xtf32_ms=tc_ms, bound_3xtf32_by=tc_by)
     emit("kernel_fused_lut_gemm" if fused else "kernel_lut_gemm", **res)
     return res
 
@@ -425,6 +464,7 @@ def phase_kernels(dev):
         (8, 2048, 16384, bf, False, "mlp/wi decode-only bf16"),
         (5, 11008, 4096, f32, True, "unaligned K=11008 W8 f32"),
         (37, 1000, 100, bf, False, "unaligned M/K/N nibble bf16"),
+        (1024, 2048, 16384, bf, False, "mlp/wi prefill M=1024"),
     ]
     gemm = [gemm_case(dev, gen, *shape) for shape in gemm_shapes]
     topk = [
@@ -800,6 +840,8 @@ def main() -> int:
     regs = [l.strip() for log in kb.BUILD_LOG.values() for l in log.splitlines()
             if "registers" in l]
     emit("build", seconds=secs, ptxas=regs)
+    emit("build_lut", **{k: ptxas_report(kb.BUILD_LOG.get(k, "")) for k in ("fused_lut_gemm",
+                                                                             "lut_gemm")})
     results = phase_kernels(dev)
     for name_k, (cases, _) in results.items():
         failures += [f"{name_k}: {c['case']}" for c in cases if not c["ok"]]
@@ -832,8 +874,11 @@ def main() -> int:
             "name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
             "replaces": TPU_KERNELS[k], "launches": path_launches[k], "max_abs_err": errs[k],
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "bound_ms": rep.get("bound_3xtf32_ms", rep["bound_ms"]),
+            "bound_by": rep.get("bound_3xtf32_by", rep["bound_by"]),
             "library_ms": rep["library_ms"], "shape": rep["case"],
+            "device_ms": rep.get("kernel_device_ms"),
+            "library_device_ms": rep.get("library_device_ms"),
         })
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)

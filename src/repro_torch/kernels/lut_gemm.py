@@ -11,12 +11,19 @@
   ``ref.lut_gemm_byte_ref``.
 
 All return the UNSCALED (M, N) float32 product; the caller applies the
-per-token and per-channel scales.
+per-token and per-channel scales. Both kernels run one tile loop
+(``csrc/lut_gemm_tile.cuh``): a block owns a strip of ``block_n`` output
+columns and all token rows, walked in row tiles of ``block_m``, over a chunk
+of ``block_k`` rows of K (split-K), with float32-accurate 3xTF32 products
+on the warpgroup tensor-core MMA. ``blocks=(block_m, block_n, block_k)``
+picks the tile; without it :func:`default_blocks` fills the card. The plain
+versions ignore it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,10 +32,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bucketize import rank
 
 __all__ = ["fused_lut_gemm", "fused_lut_gemm_plain", "lut_gemm", "lut_gemm_plain",
-           "exact_sum_inputs"]
+           "exact_sum_inputs", "default_blocks", "check_blocks", "TILES", "STAGE_K"]
 
 NAME = "fused_lut_gemm"
 INDEX = "lut_gemm"
+# (block_m, block_n) pairs the kernels instantiate (``lut_tile::with_tile``):
+# token rows per tile (the warpgroup MMA's N) and columns per strip
+TILES = tuple((m, n) for n in (256, 128) for m in (8, 72, 80))
+STAGE_K = 32  # K rows per pipeline stage: block_k is a multiple of it
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 _UP, _DOWN = torch.tensor(float("inf")), torch.tensor(float("-inf"))
 
 
@@ -126,11 +139,76 @@ def _require(cond: bool, msg: str, name: str = NAME) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
+def default_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """The tile for an (M, K) x (K, N) product: the smallest row tile of 8,
+    72 or 80 token rows that holds M (a packed serving step of 72 is one
+    tile; more rows are walked in tiles of 80), strips of 256 columns
+    (512-thread blocks, one an SM) or, for N < 1024, of 128 (256-thread
+    blocks), and K split so that one wave of blocks fills the card, each
+    split at least four stages (the split-K sums cost more than the blocks
+    gain below that). Chosen by timing on an H100."""
+    block_m = next(t for t in (8, 72, 80) if m <= t) if m <= 80 else 80
+    block_n = 256 if n >= 1024 else 128
+    per_sm = 1 if block_n == 256 else 2
+    strips = -(-n // block_n)
+    splits = max(1, min(per_sm * _SMS // strips, k // (4 * STAGE_K)))
+    block_k = -(-max(k, 1) // splits)
+    return block_m, block_n, -(-block_k // STAGE_K) * STAGE_K
+
+
+def check_blocks(blocks, name: str = NAME) -> tuple[int, int, int]:
+    """``blocks`` as a validated ``(block_m, block_n, block_k)`` tuple."""
+    _require(len(blocks) == 3, f"blocks must be (block_m, block_n, block_k), got {blocks}",
+             name)
+    bm, bn, bk = (int(b) for b in blocks)
+    _require((bm, bn) in TILES, f"(block_m, block_n) must be one of {TILES}, got {(bm, bn)}",
+             name)
+    _require(bk > 0 and bk % STAGE_K == 0,
+             f"block_k must be a positive multiple of {STAGE_K}, got {bk}", name)
+    return bm, bn, bk
+
+
+def _tickets(device: torch.device, stream: int, strips: int) -> torch.Tensor:
+    """Zeroed split-K counters for one stream (the kernel leaves them zeroed)."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < strips:
+        t = torch.zeros(max(strips, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def _launch(fn, name: str, args: list, m: int, n: int, k: int, blocks, device) -> torch.Tensor:
+    """Launch ``fn(*args, y, M, N, K, tile_m, tile_n, k_split, ws, tickets,
+    stream)`` with the tile ``blocks`` (None: :func:`default_blocks`)."""
+    bm, bn, bk = check_blocks(blocks, name) if blocks else default_blocks(m, n, k)
+    splits = max(1, math.ceil(k / bk))
+    y = torch.empty((m, n), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=device)
+        tickets = _tickets(device, stream, math.ceil(n / bn))
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*(p if isinstance(a, torch.Tensor) else i for a in args), p, i, i, i, i,
+                       i, i, p, p, p]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), y.data_ptr(),
+             m, n, k, bm, bn, bk, ptr(ws), ptr(tickets), stream)
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return y
+
+
 def fused_lut_gemm(x, scale, w_packed, boundaries, a_book, w_book, *,
-                   byte_packed: bool = False, mul_form: bool = False) -> torch.Tensor:
+                   byte_packed: bool = False, mul_form: bool = False,
+                   blocks=None) -> torch.Tensor:
     """x (M, K) float32|bfloat16, scale (M, 1) float32, w_packed (K, N/2) or
     (K, N) uint8, boundaries (2^a - 1,), a_book (2^a,), w_book (2^w,) float32.
     A NaN activation gets index 0 in both compare forms (``kernels.bucketize``).
+    ``blocks``: ``(block_m, block_n, block_k)``, see :func:`check_blocks`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -150,28 +228,22 @@ def fused_lut_gemm(x, scale, w_packed, boundaries, a_book, w_book, *,
     _require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     _require(all(t.dtype == torch.float32 for t in (boundaries, a_book, w_book)),
              "boundaries and codebooks must be float32")
+    if blocks is not None:
+        check_blocks(blocks)
     if x.device.type == "cpu":
         return fused_lut_gemm_plain(x, scale, w_packed, boundaries, a_book, w_book,
                                     byte_packed=byte_packed, mul_form=mul_form)
     _require(x.is_cuda, f"unsupported device {x.device}")
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    lib = build.library(NAME)
-    fn = lib.fused_lut_gemm
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, i, p, i, i, p, p, i, p, i, i, i, p]
-    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
-             w_packed.data_ptr(), int(byte_packed), boundaries.data_ptr(), nb,
-             int(mul_form), a_book.data_ptr(), w_book.data_ptr(), w_book.shape[0],
-             y.data_ptr(), m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, NAME)
-    build.LAUNCHES[NAME] += 1
-    return y
+    args = [x, int(x.dtype == torch.bfloat16), scale, w_packed, int(byte_packed), boundaries,
+            nb, int(mul_form), a_book, w_book, w_book.shape[0]]
+    return _launch(build.library(NAME).fused_lut_gemm, NAME, args, m, n, k, blocks, x.device)
 
 
-def lut_gemm(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False) -> torch.Tensor:
+def lut_gemm(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False,
+             blocks=None) -> torch.Tensor:
     """a_idx (M, K) int32 in [0, 2^a), w_packed (K, N/2) or (K, N) uint8,
-    a_book (2^a,) with a <= 8, w_book (2^w,) float32.
+    a_book (2^a,) with a <= 8, w_book (2^w,) float32. ``blocks`` as for
+    :func:`fused_lut_gemm`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -189,17 +261,10 @@ def lut_gemm(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False) -> t
     req(all(t.device == a_idx.device for t in tensors), "inputs must share one device")
     req(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     req(all(t.dtype == torch.float32 for t in (a_book, w_book)), "codebooks must be float32")
+    if blocks is not None:
+        check_blocks(blocks, INDEX)
     if a_idx.device.type == "cpu":
         return lut_gemm_plain(a_idx, w_packed, a_book, w_book, byte_packed=byte_packed)
     req(a_idx.is_cuda, f"unsupported device {a_idx.device}")
-    y = torch.empty((m, n), dtype=torch.float32, device=a_idx.device)
-    fn = build.library(INDEX).lut_gemm
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, i, p, i, p, i, i, i, p]
-    err = fn(a_idx.data_ptr(), w_packed.data_ptr(), int(byte_packed), a_book.data_ptr(),
-             a_book.shape[0], w_book.data_ptr(), w_book.shape[0], y.data_ptr(), m, n, k,
-             torch.cuda.current_stream(a_idx.device).cuda_stream)
-    build.check(err, INDEX)
-    build.LAUNCHES[INDEX] += 1
-    return y
+    args = [a_idx, w_packed, int(byte_packed), a_book, a_book.shape[0], w_book, w_book.shape[0]]
+    return _launch(build.library(INDEX).lut_gemm, INDEX, args, m, n, k, blocks, a_idx.device)

@@ -30,6 +30,8 @@ def dev():
     (72, 1024, 256, True, True),
     (5, 1000, 100, False, False),
     (3, 1100, 40, True, False),
+    (200, 2048, 1024, False, True),  # more token rows than one row tile
+    (200, 1000, 300, True, False),
 ])
 def test_fused_lut_gemm_kernel_vs_plain(dev, m, k, n, byte, bf16):
     from repro_torch.core.codebook import boundaries_from_centroids
@@ -53,6 +55,8 @@ def test_fused_lut_gemm_kernel_vs_plain(dev, m, k, n, byte, bf16):
     ref = fused_lut_gemm_plain(x, s, w, bounds, a_book, w_book, **kw)
     torch.cuda.synchronize()
     assert build.LAUNCHES["fused_lut_gemm"] == launches + 1
+    # the split-K sums its partials in a fixed order: the same bits every launch
+    assert torch.equal(fused_lut_gemm(x, s, w, bounds, a_book, w_book, **kw), y)
     # rounding errors of two summation orders grow like sqrt(K) u (|a| @ |w|);
     # one activation index on another centroid moves a row by far more
     step = a_book.diff().min().item() * w_book.abs().max().item()
@@ -62,6 +66,27 @@ def test_fused_lut_gemm_kernel_vs_plain(dev, m, k, n, byte, bf16):
     # exact sums: the kernel must equal the plain version bit for bit
     args = [a.to(dev) for a in exact_sum_inputs(m, k, n, x.dtype, byte, seed=k)]
     assert torch.equal(fused_lut_gemm(*args, **kw), fused_lut_gemm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("byte", [False, True])
+@pytest.mark.parametrize("blocks", [(80, 128, 512), (72, 256, 256), (80, 256, 64),
+                                    (8, 128, 8192)])
+def test_lut_gemm_tiles_equal_on_exact_sums(dev, blocks, byte):
+    """Every tile the kernels instantiate, with and without split-K: on exact
+    sums the fused kernel, bucketize + the index kernel and the plain version
+    agree bit for bit."""
+    from repro_torch.kernels.bucketize import bucketize_call
+    from repro_torch.kernels.lut_gemm import exact_sum_inputs, fused_lut_gemm, lut_gemm
+
+    m, k, n = 150, 2000, 768
+    x, s, w, bounds, ab, wb = [t.to(dev) for t in exact_sum_inputs(m, k, n, torch.float32,
+                                                                   byte, seed=7)]
+    want = fused_lut_gemm(x.cpu(), s.cpu(), w.cpu(), bounds.cpu(), ab.cpu(), wb.cpu(),
+                          byte_packed=byte)
+    got = fused_lut_gemm(x, s, w, bounds, ab, wb, byte_packed=byte, blocks=blocks)
+    assert torch.equal(got.cpu(), want)
+    idx = bucketize_call((x / s).contiguous(), bounds)
+    assert torch.equal(lut_gemm(idx, w, ab, wb, byte_packed=byte, blocks=blocks), got)
 
 
 @pytest.mark.parametrize("m,n,k,kind", [
@@ -183,6 +208,7 @@ def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
 
 @pytest.mark.parametrize("m,k,n,byte", [
     (72, 2048, 512, False), (72, 8192, 2048, True), (5, 1000, 100, False), (3, 1100, 40, True),
+    (200, 2048, 1024, False), (200, 1001, 264, True),
 ])
 def test_index_lut_gemm_kernel_vs_plain(dev, m, k, n, byte):
     from repro_torch.kernels.bucketize import bucketize_call
@@ -199,6 +225,7 @@ def test_index_lut_gemm_kernel_vs_plain(dev, m, k, n, byte):
     y = lut_gemm(a_idx, w, a_book, w_book, byte_packed=byte)
     ref = lut_gemm_plain(a_idx, w, a_book, w_book, byte_packed=byte)
     torch.cuda.synchronize()
+    assert torch.equal(lut_gemm(a_idx, w, a_book, w_book, byte_packed=byte), y)
     bound = 2 * k**0.5 * U32 * (a_book.abs().max() * w_book.abs().max() * k).item()
     assert (y - ref).abs().max().item() <= bound
     # exact sums: bucketize kernel -> index kernel equals the fused kernel bit for bit
