@@ -11,11 +11,15 @@ Phases, each printing one JSON line:
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               llama3_2_1b's serving shapes (72 token rows = 8 decode slots +
               a 64-token prefill chunk) and a 1024-row prefill for the
-              LUT-GEMMs, with times, bounds and yardsticks (the LUT-GEMM,
-              top-k, streaming and bucketize kernels also with their device
-              time under the profiler); both LUT-GEMMs also bit for bit on
-              inputs with exact sums, where bucketize + index GEMM must equal
-              the fused kernel, and bit for bit between two launches.
+              LUT-GEMMs, with times, bounds and yardsticks (every kernel also
+              with its device time under the profiler); both LUT-GEMMs also
+              bit for bit on inputs with exact sums, where bucketize + index
+              GEMM must equal the fused kernel, and bit for bit between two
+              launches. Both attention kernels also bit for bit between two
+              launches, and on three more layouts per page type: the packed
+              serving step as ``models/layers.py`` builds it, long-context
+              decode (ctx 4096-8192) and contexts on page and split
+              boundaries under a window that masks whole splits.
 4. model   -- a 2-layer, full-width llama3_2_1b: one packed serving step on
               the card against the same step on the CPU (plain versions),
               for three seeds, on the fused route (int4 KV) and on path A
@@ -97,23 +101,30 @@ def cuda_ms(fns, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fns, reps: int) -> float | None:
+def device_ms(fns, reps: int, tries: int = 3) -> float | None:
     """Device ms per call over the same loop as ``cuda_ms``, from the
     profiler's kernel events: the kernels' own time without the gaps between
-    launches (None if the profiler saw no kernel)."""
+    launches. Each call launches at least one kernel, so a profile whose
+    most frequent kernel has fewer than ``reps`` events lost some (the
+    profiler now and then drops them); the loop is then profiled again, up
+    to ``tries`` times (None if no profile saw every launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0 and max(e.count for e in events) >= reps:
+            return us / 1e3 / reps
+    return None
 
 
 def copies_for(nbytes: int) -> int:
@@ -340,23 +351,44 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
     return res
 
 
-def attn_case(dev, gen, b, s, tag, pages="int4", softcap=0.0, window=0, reps=50):
+def attn_case(dev, gen, b, s, tag, pages="int4", softcap=0.0, window=0, reps=50,
+              layout="random", max_blk=64):
     """Paged attention against its plain version, over int4 K-Means pages
     (``pages="int4"``) or float pages of the torch dtype ``pages``. Both
     sides are convex combinations of the values summed in other orders, so
-    within 4 n_keys u max|v|."""
+    within 4 n_keys u max|v|; two launches must give equal bits (the splits
+    merge in a fixed order). Layouts: ``random`` tables over a shared pool
+    with two idle rows (ctx = 0); ``packed``, the packed serving step of
+    ``models/layers.py`` (8 decode rows with their own tables, then rows that
+    share one slot's table at consecutive positions, ctx = q_pos + 1);
+    ``long`` decode rows with their own tables and ctx 4096-8192; and
+    ``boundary`` contexts that end on a page or on a split of the kernel's
+    plan, ``window`` masking whole splits. The bound counts the keys some
+    query row may see (each once), the yardstick is SDPA over dense bf16 K/V
+    of the table's width, both timed by events and by the profiler."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
-                                                paged_attn_plain, paged_attn_quant_plain)
+                                                paged_attn_plain, paged_attn_quant_plain,
+                                                split_plan)
     from repro_torch.models.model import _default_codebook
 
-    kv, g, hd, bs, max_blk, n_blocks = 8, 4, 64, 16, 64, 512
+    kv, g, hd, bs = 8, 4, 64, 16
+    n_blocks = {"random": 512, "packed": 9 * max_blk}.get(layout, b * max_blk)
     int4 = pages == "int4"
     book = _default_codebook(4, device=dev)
     kern, plain = ((paged_attn_int4, paged_attn_quant_plain) if int4
                    else (paged_attn_bf16, paged_attn_plain))
+    ar_blk = torch.arange(max_blk, device=dev)
+
+    def own_tables(ctx, slot_of_row):
+        """Distinct pages per slot; row r reads slot ``slot_of_row[r]``'s
+        table, cut (-1) past its context."""
+        perm = torch.randperm(n_blocks, generator=gen, device=dev)
+        tables = perm[:n_blocks // max_blk * max_blk].reshape(-1, max_blk)[slot_of_row]
+        tables[ar_blk[None, :] >= ((ctx + bs - 1) // bs)[:, None]] = -1
+        return tables
 
     def inputs():
         if int4:
@@ -370,48 +402,85 @@ def attn_case(dev, gen, b, s, tag, pages="int4", softcap=0.0, window=0, reps=50)
             pool = tuple(torch.randn((n_blocks, bs, kv, hd), generator=gen, device=dev)
                          .to(pages) for _ in "kv")
         q = torch.randn((b, s, kv, g, hd), generator=gen, device=dev)
-        ctx = torch.randint(1, max_blk * bs + 1, (b,), generator=gen, device=dev)
-        ctx[-2:] = 0  # idle rows
-        tables = torch.randint(0, n_blocks, (b, max_blk), generator=gen, device=dev)
-        nblk = (ctx + bs - 1) // bs
-        tables[torch.arange(max_blk, device=dev)[None, :] >= nblk[:, None]] = -1
-        qpos = (ctx[:, None] - s + torch.arange(s, device=dev)[None, :]).clamp(min=-1)
-        qpos[ctx == 0] = -1
-        if s > 1:
-            qpos[0, -1] = -1  # a padded cell inside a live segment
+        ar_s = torch.arange(s, device=dev)[None, :]
+        if layout == "random":
+            ctx = torch.randint(1, max_blk * bs + 1, (b,), generator=gen, device=dev)
+            ctx[-2:] = 0  # idle rows
+            tables = torch.randint(0, n_blocks, (b, max_blk), generator=gen, device=dev)
+            nblk = (ctx + bs - 1) // bs
+            tables[ar_blk[None, :] >= nblk[:, None]] = -1
+            qpos = (ctx[:, None] - s + ar_s).clamp(min=-1)
+            qpos[ctx == 0] = -1
+            if s > 1:
+                qpos[0, -1] = -1  # a padded cell inside a live segment
+        elif layout == "packed":
+            dec = 8
+            ctx = torch.randint(1, max_blk * bs + 1, (b,), generator=gen, device=dev)
+            c0 = int(torch.randint(0, max_blk * bs - (b - dec) + 1, (1,), generator=gen,
+                                   device=dev))
+            ctx[dec:] = c0 + 1 + torch.arange(b - dec, device=dev)
+            slot = torch.arange(b, device=dev).clamp(max=dec)
+            end = ctx.clone()
+            end[dec:] = ctx[-1]  # the prefill slot's table reaches its chunk's end
+            tables = own_tables(end, slot)
+            qpos = ctx[:, None] - 1
+        else:
+            if layout == "long":
+                ctx = torch.randint(4096, 8193, (b,), generator=gen, device=dev)
+            else:
+                keys = split_plan(b, kv, max_blk, bs)[1] * bs
+                ctx = torch.tensor([keys, keys + 1, keys - 1, 2 * keys, max_blk * bs, bs,
+                                    max_blk * bs - 1, 3 * bs, 1, 0], device=dev)[:b]
+            tables = own_tables(ctx, torch.arange(b, device=dev))
+            qpos = (ctx[:, None] - s + ar_s).clamp(min=-1)
+            qpos[ctx == 0] = -1
         return tuple(t.contiguous() for t in (q, *pool, tables.int(), ctx.int(), qpos.int()))
 
     args = inputs()
     kw = dict(softcap=softcap, window=window)
     out, ref = kern(*args, **kw), plain(*args, **kw)
+    repeat_equal = torch.equal(kern(*args, **kw), out)
     torch.cuda.synchronize()
     tables, ctx, qpos = (t.long() for t in args[-3:])
     live = qpos >= 0  # rows that see at least one key (q_pos < ctx here)
     err = (out - ref).abs()[live].max().item()
     v_max = (book.abs().max() * args[4].max()) if int4 else args[2].float().abs().max()
     tol = 4 * int(ctx.max()) * U32 * v_max.item()
-    ok = bool(torch.isfinite(out).all()) and err <= tol
-    nblk = (ctx + bs - 1) // bs
-    used = torch.unique(tables[torch.arange(max_blk, device=dev)[None, :] < nblk[:, None]])
+    ok = bool(torch.isfinite(out).all()) and err <= tol and repeat_equal
+    # the keys some row may see: kpos < ctx, kpos <= q_pos, kpos > q_pos - window
+    kpos = torch.arange(max_blk * bs, device=dev)
+    sees = (kpos[None, None, :] < ctx[:, None, None]) & (kpos[None, None, :] <= qpos[..., None])
+    if window > 0:
+        sees &= kpos[None, None, :] > qpos[..., None] - window
+    need = sees.any(1)  # (B, keys)
+    slots = (tables.clamp(min=0)[:, kpos // bs] * bs + kpos % bs)[need]
     row_bytes = hd // 2 + 4 if int4 else hd * args[1].element_size()  # one head's K of a token
-    kv_bytes = used.numel() * bs * kv * row_bytes * 2
+    kv_bytes = torch.unique(slots).numel() * kv * row_bytes * 2
     nbytes = (2 * args[0].numel() * 4 + kv_bytes + 4 * (tables.numel() + 2 * b + b * s)
               + (book.numel() * 4 if int4 else 0))
-    flops = 4.0 * s * g * hd * kv * float(ctx.sum())
+    flops = 4.0 * g * hd * kv * float(sees.sum())
     sets = [inputs() for _ in range(copies_for(kv_bytes))]
-    ms = cuda_ms([lambda t=t: kern(*t, **kw) for t in sets], reps)
+    kern_fns = [lambda t=t: kern(*t, **kw) for t in sets]
+    ms = cuda_ms(kern_fns, reps)
+    dev_ms = device_ms(kern_fns, reps)
     plain_ms = cuda_ms([lambda t=t: plain(*t, **kw) for t in sets[:2]], 5)
     # yardstick only: SDPA over the same keys pre-gathered as dense bf16
     qd = args[0].permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, hd).to(torch.bfloat16)
     kd = torch.randn((b, kv * g, max_blk * bs, hd), device=dev, dtype=torch.bfloat16)
     mask = (torch.arange(max_blk * bs, device=dev)[None, None, None, :]
             < ctx[:, None, None, None])
-    lib_ms = cuda_ms([lambda: F.scaled_dot_product_attention(qd, kd, kd, attn_mask=mask)], reps)
+    lib_fns = [lambda: F.scaled_dot_product_attention(qd, kd, kd, attn_mask=mask)]
+    lib_ms = cuda_ms(lib_fns, reps)
+    lib_dev_ms = device_ms(lib_fns, reps)
+    del kd, sets
     b_ms, b_by = bound(nbytes, flops)
+    splits, pps = split_plan(b, kv, max_blk, bs)
     case = tag if int4 else f"{tag} {str(pages).removeprefix('torch.')} pages"
     res = dict(case=case, B=b, S=s, KV=kv, G=g, hd=hd, bs=bs, max_blk=max_blk,
-               softcap=softcap, window=window, max_abs_err=err, tol=tol, ok=ok, kernel_ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+               splits=splits, pages_per_split=pps, softcap=softcap, window=window,
+               max_abs_err=err, tol=tol, repeat_equal=repeat_equal, ok=ok, kernel_ms=ms,
+               kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     emit("kernel_paged_attn_int4" if int4 else "kernel_paged_attn_bf16", **res)
     return res
 
@@ -479,6 +548,15 @@ def phase_kernels(dev):
                                                 (ROWS, 1, "window=100 softcap=30", 30.0, 100),
                                                 (18, 4, "segments S=4", 0.0, 0))]
             for pages in ("int4", bf, f32)}
+    gen_attn = torch.Generator(device=dev).manual_seed(1)  # the cases above keep their inputs
+    for pages in ("int4", bf, f32):
+        attn[pages] += [
+            attn_case(dev, gen_attn, ROWS, 1, "packed layout", pages, layout="packed"),
+            attn_case(dev, gen_attn, 8, 1, "long decode ctx 4096-8192", pages, layout="long",
+                      max_blk=512),
+            attn_case(dev, gen_attn, 10, 1, "page/split boundaries window=200", pages,
+                      window=200, layout="boundary", max_blk=128),
+        ]
     streaming = [
         topk_case(dev, gen, ROWS, n, k, "normal", mul)
         for mul in (True, False) for n, k in ((2048, 10), (8192, 41))
@@ -813,8 +891,11 @@ def phase_profile(phase: str, engine, vocab: int) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    attn = [(us, c) for us, k, c in rows if "paged_attn" in k]
     emit(phase, wall_s=wall, packed_steps=steps, ms_per_step=wall / steps * 1e3,
          device_busy_s=busy_s, device_busy_share=busy_s / wall if rows else None,
+         attention_device_ms_per_step=sum(us for us, _ in attn) / 1e3 / steps,
+         attention_calls=sum(c for _, c in attn),
          top=[{"op": k, "device_ms": us / 1e3, "calls": c} for us, k, c in rows[:12]])
 
 

@@ -10,7 +10,8 @@ can import every module and run the plain versions on CPU tensors.
 Launch accounting lives here too: ``LAUNCHES[name]`` counts the times a
 wrapper launched its kernel, ``PLAIN_ON_CUDA[name]`` the times a plain
 version ran on a CUDA tensor (a run that should have gone through the
-kernel, or a deliberate comparison).
+kernel, or a deliberate comparison). So do the launch helpers the split
+kernels share: ``SMS`` and the zeroed ``tickets`` of a stream.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import subprocess
 import time
 from collections import Counter
 
-__all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "reset_counts", "build_all",
-           "library", "build_dir", "check"]
+import torch
+
+__all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "SMS", "reset_counts", "build_all",
+           "library", "build_dir", "check", "tickets"]
 
 KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4", "paged_attn_bf16",
            "streaming_quantize_outlier", "lut_gemm", "bucketize")
@@ -36,6 +39,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 _LIBS: dict[str, ctypes.CDLL] = {}
+SMS = 132  # streaming multiprocessors of an H100 SXM
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -111,3 +116,15 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for one stream: the split kernels
+    count their finished blocks here, and the last block resets its counter.
+    Kernels on one stream run in turn, so they share the buffer."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t

@@ -40,8 +40,6 @@ INDEX = "lut_gemm"
 # token rows per tile (the warpgroup MMA's N) and columns per strip
 TILES = tuple((m, n) for n in (256, 128) for m in (8, 72, 80))
 STAGE_K = 32  # K rows per pipeline stage: block_k is a multiple of it
-_SMS = 132  # streaming multiprocessors of an H100 SXM
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 _UP, _DOWN = torch.tensor(float("inf")), torch.tensor(float("-inf"))
 
 
@@ -151,7 +149,7 @@ def default_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
     block_n = 256 if n >= 1024 else 128
     per_sm = 1 if block_n == 256 else 2
     strips = -(-n // block_n)
-    splits = max(1, min(per_sm * _SMS // strips, k // (4 * STAGE_K)))
+    splits = max(1, min(per_sm * build.SMS // strips, k // (4 * STAGE_K)))
     block_k = -(-max(k, 1) // splits)
     return block_m, block_n, -(-block_k // STAGE_K) * STAGE_K
 
@@ -168,16 +166,6 @@ def check_blocks(blocks, name: str = NAME) -> tuple[int, int, int]:
     return bm, bn, bk
 
 
-def _tickets(device: torch.device, stream: int, strips: int) -> torch.Tensor:
-    """Zeroed split-K counters for one stream (the kernel leaves them zeroed)."""
-    key = (device.index, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < strips:
-        t = torch.zeros(max(strips, 1024), dtype=torch.int32, device=device)
-        _TICKETS[key] = t
-    return t
-
-
 def _launch(fn, name: str, args: list, m: int, n: int, k: int, blocks, device) -> torch.Tensor:
     """Launch ``fn(*args, y, M, N, K, tile_m, tile_n, k_split, ws, tickets,
     stream)`` with the tile ``blocks`` (None: :func:`default_blocks`)."""
@@ -188,7 +176,7 @@ def _launch(fn, name: str, args: list, m: int, n: int, k: int, blocks, device) -
     ws = tickets = None
     if splits > 1:
         ws = torch.empty((splits, m, n), dtype=torch.float32, device=device)
-        tickets = _tickets(device, stream, math.ceil(n / bn))
+        tickets = build.tickets(device, stream, math.ceil(n / bn))
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int

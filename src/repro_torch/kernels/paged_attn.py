@@ -15,7 +15,13 @@ Layouts are the JAX ones: q (B, S, KV, G, hd) float32; tables (B, max_blk)
 int32 (< 0 = unallocated); ctx_lens (B,) and q_pos (B, S) int32 (< 0 =
 padded row). Output float32 in q's shape. Rows that see no valid key are
 finite but meaningless in both versions (the plain one averages every
-gathered value, the kernel every value it read) and are discarded by callers.
+gathered value, the kernel gives 0) and are discarded by callers.
+
+Both kernels share one body (``csrc/paged_attn_common.cuh``): the grid is
+(splits, KV, B), each block owning a run of whole pages of one row's table,
+and the last block of each (row, head) merges the splits' partial softmax
+states in split order. :func:`split_plan` picks the split from shapes alone,
+so a launch never reads ``ctx_lens`` on the host.
 """
 
 from __future__ import annotations
@@ -26,11 +32,15 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["paged_attn_int4", "paged_attn_quant_plain", "paged_attn_bf16", "paged_attn_plain"]
+__all__ = ["paged_attn_int4", "paged_attn_quant_plain", "paged_attn_bf16", "paged_attn_plain",
+           "split_plan"]
 
 NAME = "paged_attn_int4"
 FLOAT = "paged_attn_bf16"
 _NEG_INF = torch.finfo(torch.float32).min
+SPLIT_WAVE = 4  # blocks per SM the split aims at
+SPLIT_MIN_KEYS = 256  # keys per split at least: four ring slots of 64
+SPLIT_MAX_PAGES = 2048  # pages per split at most (the block's table in shared memory)
 
 
 def _deq(idx: torch.Tensor, scale: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -82,6 +92,36 @@ def paged_attn_plain(q, pages_k, pages_v, block_tables, ctx_lens, q_pos, *,
     return _attend_gathered(q, gk, gv, ctx_lens, q_pos, softcap, window)
 
 
+def split_plan(b: int, kv: int, max_blk: int, bs: int, sms: int = build.SMS) -> tuple[int, int]:
+    """``(splits, pages_per_split)`` of a launch over B rows, KV heads and
+    tables of ``max_blk`` pages of ``bs`` keys, on a card of ``sms`` SMs.
+    Split i owns pages ``[i * pages_per_split, (i + 1) * pages_per_split)``
+    of ``[0, max_blk)``; enough splits that ``SPLIT_WAVE`` blocks per SM are
+    launched, none shorter than ``SPLIT_MIN_KEYS`` keys unless the table is.
+    Shapes only: the context lengths stay on the card, and each block reads
+    its own (splits past it return at once)."""
+    pairs = max(1, b * kv)
+    most = max(1, -(-max_blk // max(1, -(-SPLIT_MIN_KEYS // bs))))
+    splits = min(max(1, -(-SPLIT_WAVE * sms // pairs)), most)
+    splits = max(splits, -(-max_blk // SPLIT_MAX_PAGES))
+    pps = max(1, -(-max_blk // splits))
+    return max(1, -(-max_blk // pps)), pps
+
+
+def _split_launch(q, bs: int, max_blk: int) -> tuple[list, int]:
+    """The kernels' trailing arguments (pages per split, splits, workspace,
+    tickets, stream) and the workspace tensor that must outlive the call."""
+    b, s, kv, g, hd = q.shape
+    splits, pps = split_plan(b, kv, max_blk, bs)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty(b * kv * splits * s * g * (hd + 2), dtype=torch.float32, device=q.device)
+        tickets = build.tickets(q.device, stream, b * kv)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return [pps, splits, ptr(ws), ptr(tickets), stream], ws
+
+
 def _require(cond: bool, msg: str, name: str = NAME) -> None:
     if not cond:
         raise ValueError(f"{name}: {msg}")
@@ -126,12 +166,13 @@ def paged_attn_int4(q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables, c
     fn = build.library(NAME).paged_attn_int4
     fn.restype = ctypes.c_int
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 10 + [i] * 8 + [f, i, f, p]
+    fn.argtypes = [p] * 10 + [i] * 8 + [f, i, f, i, i, p, p, p]
+    tail, _ws = _split_launch(q, bs, block_tables.shape[1])
     err = fn(q.data_ptr(), k_idx.data_ptr(), k_scale.data_ptr(), v_idx.data_ptr(),
              v_scale.data_ptr(), codebook.data_ptr(), block_tables.data_ptr(),
              ctx_lens.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, s, kv, g, hd,
              n_blocks, bs, block_tables.shape[1], float(softcap), int(window),
-             float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+             float(hd ** -0.5), *tail)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return out
@@ -162,12 +203,12 @@ def paged_attn_bf16(q, pages_k, pages_v, block_tables, ctx_lens, q_pos, *,
     fn = build.library(FLOAT).paged_attn_bf16
     fn.restype = ctypes.c_int
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, p, p, p] + [i] * 8 + [f, i, f, p]
+    fn.argtypes = [p, p, p, i, p, p, p, p] + [i] * 8 + [f, i, f, i, i, p, p, p]
+    tail, _ws = _split_launch(q, bs, block_tables.shape[1])
     err = fn(q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
              int(pages_k.dtype == torch.bfloat16), block_tables.data_ptr(), ctx_lens.data_ptr(),
              q_pos.data_ptr(), out.data_ptr(), b, s, kv, g, hd, n_blocks, bs,
-             block_tables.shape[1], float(softcap), int(window), float(hd ** -0.5),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             block_tables.shape[1], float(softcap), int(window), float(hd ** -0.5), *tail)
     build.check(err, FLOAT)
     build.LAUNCHES[FLOAT] += 1
     return out

@@ -279,3 +279,118 @@ def test_float_pools_and_plain_gemm_route_serve_on_the_card(dev, kv_dtype):
     plain = with_detect_route(qp, "jnp")
     want = ServingEngine(model, plain, sc, batch_slots=2).generate(prompts, max_new_tokens=6)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# paged attention, the split design: contexts over many splits, windows that
+# mask whole splits, ctx = 0 rows, page and split boundaries, repeat launches
+# ---------------------------------------------------------------------------
+
+def _split_attn(dev, pages, b, s, ctx, *, max_blk, hd=64, grp=4, kv=8, bs=16, seed=0,
+                pad_cell=False):
+    """Inputs of either kernel with the given context lengths: distinct pages
+    per row (a row's table is a slice of one permutation, past its context
+    -1), the segment ending at ctx, and (``pad_cell``) one padded cell."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = b * max_blk
+    ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    tables = torch.randperm(nb, generator=g, device=dev).reshape(b, max_blk)
+    ar = torch.arange(max_blk, device=dev)
+    tables[ar[None, :] >= ((ctx + bs - 1) // bs)[:, None]] = -1
+    qpos = (ctx[:, None] - s + torch.arange(s, device=dev)[None, :]).clamp(min=-1)
+    qpos[ctx == 0] = -1
+    if pad_cell:
+        qpos[0, -1] = -1
+    q = torch.randn((b, s, kv, grp, hd), generator=g, device=dev)
+    if pages == "int4":
+        u8 = dict(generator=g, device=dev, dtype=torch.uint8)
+        pool = (torch.randint(0, 256, (nb, bs, kv, hd // 2), **u8),
+                torch.rand((nb, bs, kv, 1), generator=g, device=dev) + 0.5,
+                torch.randint(0, 256, (nb, bs, kv, hd // 2), **u8),
+                torch.rand((nb, bs, kv, 1), generator=g, device=dev) + 0.5)
+        from repro_torch.models.model import _default_codebook
+        pool = (*pool, _default_codebook(4, device=dev))
+        vmax = (pool[4].abs().max() * pool[3].max()).item()
+    else:
+        dt = getattr(torch, pages)
+        pool = tuple(torch.randn((nb, bs, kv, hd), generator=g, device=dev).to(dt)
+                     for _ in "kv")
+        vmax = pool[1].float().abs().max().item()
+    return (q, *pool, tables.int(), ctx, qpos.int().contiguous()), vmax
+
+
+def _check_split(pages, args, vmax, *, softcap=0.0, window=0):
+    """Kernel vs plain on the rows that see a key (the existing tolerance
+    4 n u max|v| with n the table's keys), finite everywhere, 0 on rows that
+    see none, and two launches equal bit for bit."""
+    from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
+                                                paged_attn_plain, paged_attn_quant_plain)
+
+    kern, plain = ((paged_attn_int4, paged_attn_quant_plain) if pages == "int4"
+                   else (paged_attn_bf16, paged_attn_plain))
+    kw = dict(softcap=softcap, window=window)
+    out, ref = kern(*args, **kw), plain(*args, **kw)
+    again = kern(*args, **kw)
+    torch.cuda.synchronize()
+    tables, ctx, qpos = args[-3:]
+    sees = (qpos >= 0) & (qpos < ctx[:, None])  # the key at q_pos itself is valid
+    n_keys = tables.shape[1] * args[1].shape[1]
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs()[sees].max().item() <= 4 * n_keys * U32 * vmax
+    assert (out[~sees] == 0).all()
+    assert torch.equal(out, again)
+
+
+PAGES = ["int4", "bfloat16", "float32"]
+
+
+@pytest.mark.parametrize("pages", PAGES)
+def test_paged_attn_multi_split_contexts(dev, pages):
+    from repro_torch.kernels.paged_attn import split_plan
+
+    assert split_plan(8, 8, 128, 16)[0] > 1
+    ctx = [2048, 1, 17, 1000, 1537, 0, 2047, 640]
+    args, vmax = _split_attn(dev, pages, 8, 1, ctx, max_blk=128, seed=1)
+    _check_split(pages, args, vmax)
+
+
+@pytest.mark.parametrize("pages", PAGES)
+def test_paged_attn_segments_with_padded_cell(dev, pages):
+    ctx = [700, 3, 1024, 0, 256, 513, 4, 64, 901]
+    args, vmax = _split_attn(dev, pages, 9, 4, ctx, max_blk=64, seed=2, pad_cell=True)
+    _check_split(pages, args, vmax, softcap=20.0)
+
+
+@pytest.mark.parametrize("pages", PAGES)
+def test_paged_attn_window_masks_whole_splits(dev, pages):
+    from repro_torch.kernels.paged_attn import split_plan
+
+    splits, pps = split_plan(6, 8, 128, 16)
+    assert splits > 2
+    keys = pps * 16
+    ctx = [128 * 16, 3 * keys, 3 * keys + 1, 2 * keys - 1, 100, 0]
+    args, vmax = _split_attn(dev, pages, 6, 2, ctx, max_blk=128, seed=3)
+    _check_split(pages, args, vmax, window=keys // 2)
+
+
+@pytest.mark.parametrize("pages", PAGES)
+def test_paged_attn_page_and_split_boundaries(dev, pages):
+    from repro_torch.kernels.paged_attn import split_plan
+
+    _, pps = split_plan(12, 8, 64, 16)
+    keys = pps * 16
+    ctx = [16, 32, keys, keys + 1, keys - 1, 2 * keys, 64 * 16, 64 * 16 - 1, 15, 1, 0, 0]
+    args, vmax = _split_attn(dev, pages, 12, 1, ctx, max_blk=64, seed=4)
+    _check_split(pages, args, vmax)
+
+
+@pytest.mark.parametrize("pages", PAGES)
+@pytest.mark.parametrize("hd,grp,s", [(16, 2, 1), (10, 3, 2), (24, 1, 4), (128, 1, 1),
+                                      (256, 2, 3)])
+def test_paged_attn_head_dims(dev, pages, hd, grp, s):
+    """Every head-dim class of the kernel, rows that need no 16-byte copies,
+    and more query rows than one pass holds."""
+    ctx = [700, 0, 47, 300]
+    args, vmax = _split_attn(dev, pages, 4, s, ctx, max_blk=96, hd=hd, grp=grp, kv=2, bs=8,
+                             seed=hd)
+    _check_split(pages, args, vmax, softcap=10.0 if s > 1 else 0.0, window=90 if s > 2 else 0)
