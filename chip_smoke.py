@@ -19,7 +19,11 @@ Phases, each printing one JSON line:
               launches, and on three more layouts per page type: the packed
               serving step as ``models/layers.py`` builds it, long-context
               decode (ctx 4096-8192) and contexts on page and split
-              boundaries under a window that masks whole splits.
+              boundaries under a window that masks whole splits. Both
+              Orizuru kernels exactly, bit for bit between two launches, also
+              on rows of NaN of both signs, +-0 and +-inf (``specials``), at
+              k = N and at N = 11008; the top-k, streaming and bucketize
+              yardsticks with their device times too.
 4. model   -- a 2-layer, full-width llama3_2_1b: one packed serving step on
               the card against the same step on the CPU (plain versions),
               for three seeds, on the fused route (int4 KV) and on path A
@@ -282,11 +286,49 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
     return res
 
 
+def special_rows(m, n, k, seed, dev):
+    """Half-integer rows (runs of equal values across the k-th place on both
+    sides) with, per row, up to k + 1 NaN of each sign bit, up to 3k -0.0 and
+    up to k of each infinity at random channels; row 0 is all -0.0, row 1
+    all NaN with the sign bit set."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    neg_nan = np.array([0xFFC00001], np.uint32).view(np.float32)[0]
+    x = (rng.randint(-3, 4, (m, n)) * 0.5).astype(np.float32)
+    for r in range(m):
+        for v, most in ((np.nan, k + 1), (neg_nan, k + 1), (-0.0, 3 * k), (np.inf, k),
+                        (-np.inf, k)):
+            x[r, rng.randint(0, n, rng.randint(0, most + 1))] = v
+    x[0] = -0.0
+    x[1 % m] = neg_nan
+    return torch.from_numpy(x).to(dev)
+
+
+def same(got, want) -> bool:
+    """``torch.equal`` on integers; float32 bit for bit, NaN equal to NaN."""
+    import torch
+
+    if got.dtype != torch.float32:
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(got.view(torch.int32)[~nan],
+                                                          want.view(torch.int32)[~nan])
+
+
 def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
     """Orizuru's dual top-k kernel or, with ``mul_form`` set, the streaming
     quantize + detect kernel (indices in that compare form, then the same
-    top-k), ``torch.equal`` to its plain version given the same scale:
-    indices, values and channels must match exactly."""
+    top-k), equal to its plain version given the same scale: indices and
+    channels exactly, values bit for bit with NaN equal to NaN, on the CPU
+    and, on rows without NaN, on the card; two launches must give the same
+    bits. Kinds: ``normal``, ``duplicates``, ``equal`` rows (one with +-inf)
+    and ``specials`` (:func:`special_rows`). On rows with NaN the plain
+    version on the card is no oracle: CUDA's ``torch.sort`` orders NaN by
+    their bits (a NaN with the sign bit set below -inf), the CPU's ranks
+    every NaN alike, above +inf, as the kernels do; ``exact`` reports the
+    card's agreement there."""
     import torch
 
     from repro_torch.core.codebook import boundaries_from_centroids
@@ -299,8 +341,8 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
     bounds = boundaries_from_centroids(_default_codebook(4, device=dev)).contiguous()
     if streaming:
         kern = lambda t: streaming_quantize_outlier_call(t[0], t[1], bounds, k, mul_form=mul_form)
-        plain = lambda t: streaming_quantize_outlier_plain(t[0], t[1], bounds, k,
-                                                           mul_form=mul_form)
+        plain = lambda t: streaming_quantize_outlier_plain(t[0], t[1], bounds.to(t[0].device),
+                                                           k, mul_form=mul_form)
         # yardstick only: torch.bucketize of x / s and two torch.topk
         lib = lambda t: (torch.bucketize(t[0] / t[1], bounds, right=True), torch.topk(t[0], k),
                          torch.topk(-t[0], k))
@@ -317,6 +359,9 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
                 x[:, :: max(1, n // 7)] *= 12.0
         elif kind == "duplicates":
             x = torch.randint(-3, 4, (m, n), generator=gen, device=dev).float()
+        elif kind == "specials":
+            x = special_rows(m, n, k, int(torch.randint(0, 2**31, (1,), generator=gen,
+                                                       device=dev)), dev)
         else:  # all-equal rows, one with +-inf entries
             x = torch.full((m, n), 0.5, device=dev)
             x[0, 3], x[0, 7] = float("inf"), float("-inf")
@@ -328,25 +373,31 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
         return x.contiguous(), s.clamp(min=1e-12)
 
     args = inputs()
-    got, want = kern(args), plain(args)
+    got, again, want = kern(args), kern(args), plain(args)
+    want_cpu = plain(tuple(t.cpu() for t in args))
     torch.cuda.synchronize()
-    ok = all(torch.equal(a, b) for a, b in zip(got, want))
+    exact = all(same(a, b) for a, b in zip(got, want))
+    exact_cpu = all(same(a.cpu(), b) for a, b in zip(got, want_cpu))
+    repeat_equal = all(same(a, b) for a, b in zip(got, again))
+    ok = exact_cpu and repeat_equal and (exact or kind == "specials")
     x_bytes = m * n * 4 * (2 if streaming else 1)  # streaming: x in, indices out
     sets = [inputs() for _ in range(copies_for(x_bytes))]
     ms = cuda_ms([lambda t=t: kern(t) for t in sets], reps)
     dev_ms = device_ms([lambda t=t: kern(t) for t in sets], reps)
     plain_ms = cuda_ms([lambda t=t: plain(t) for t in sets[:2]], 10)
     lib_ms = cuda_ms([lambda t=t: lib(t) for t in sets], reps)
+    lib_dev_ms = device_ms([lambda t=t: lib(t) for t in sets], reps)
     ops = m * (1.5 * n + 2 * k * math.log2(n))  # Orizuru comparison count
     nbytes = x_bytes + 4 * m * k * 4
     if streaming:  # the scale, the boundaries, and the scale and compares per entry
         nbytes, ops = nbytes + m * 4 + 15 * 4, ops + m * n * (1 + 15)
     b_ms, b_by = bound(nbytes, ops)
     form = f" {'mul' if mul_form else 'div'} form" if streaming else ""
-    res = dict(case=f"{kind} N={n} k={k}{form}", M=m, N=n, k=k, exact=ok,
+    res = dict(case=f"{kind} N={n} k={k}{form}", M=m, N=n, k=k, exact=exact,
+               exact_cpu=exact_cpu, repeat_equal=repeat_equal,
                max_abs_err=0.0 if ok else float("inf"), ok=ok, kernel_ms=ms,
-               kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     emit("kernel_streaming_quantize_outlier" if streaming else "kernel_topk_outlier", **res)
     return res
 
@@ -509,11 +560,13 @@ def bucketize_case(dev, gen, m, k, tag, reps=100):
     ms = cuda_ms([lambda t=t: bucketize_call(t, bounds) for t in sets], reps)
     dev_ms = device_ms([lambda t=t: bucketize_call(t, bounds) for t in sets], reps)
     plain_ms = cuda_ms([lambda t=t: bucketize_plain(t, bounds) for t in sets[:2]], 10)
-    lib_ms = cuda_ms([lambda t=t: torch.bucketize(t, bounds, right=True) for t in sets], reps)
+    lib_fns = [lambda t=t: torch.bucketize(t, bounds, right=True) for t in sets]
+    lib_ms = cuda_ms(lib_fns, reps)
+    lib_dev_ms = device_ms(lib_fns, reps)
     b_ms, b_by = bound(m * k * 8 + 15 * 4, m * k * 15.0)
     res = dict(case=tag, M=m, K=k, exact=ok, max_abs_err=0.0 if ok else float("inf"), ok=ok,
                kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     emit("kernel_bucketize", **res)
     return res
 
@@ -543,6 +596,13 @@ def phase_kernels(dev):
         topk_case(dev, gen, ROWS, 2047, 10, "normal"),
         topk_case(dev, gen, 4, 2048, 10, "equal"),
     ]
+    gen_topk = torch.Generator(device=dev).manual_seed(2)  # the cases above keep their inputs
+    topk += [
+        topk_case(dev, gen_topk, ROWS, 2048, 10, "specials"),
+        topk_case(dev, gen_topk, ROWS, 8192, 41, "specials"),
+        topk_case(dev, gen_topk, 4, 512, 512, "specials", reps=20),
+        topk_case(dev, gen_topk, ROWS, 11008, 55, "normal"),
+    ]
     attn = {pages: [attn_case(dev, gen, b, s, tag, pages, softcap=cap, window=win)
                     for b, s, tag, cap, win in ((ROWS, 1, "packed step rows", 0.0, 0),
                                                 (ROWS, 1, "window=100 softcap=30", 30.0, 100),
@@ -564,6 +624,13 @@ def phase_kernels(dev):
         topk_case(dev, gen, ROWS, 2048, 10, "duplicates", True),
         topk_case(dev, gen, ROWS, 2047, 10, "normal", False),
         topk_case(dev, gen, 4, 2048, 10, "equal", True),
+    ] + [
+        topk_case(dev, gen_topk, ROWS, 2048, 10, "specials", mul)
+        for mul in (True, False)
+    ] + [
+        topk_case(dev, gen_topk, ROWS, 8192, 41, "specials", True),
+        topk_case(dev, gen_topk, 4, 512, 512, "specials", False, reps=20),
+        topk_case(dev, gen_topk, ROWS, 11008, 55, "normal", True),
     ]
     index_gemm = [gemm_case(dev, gen, *shape, f"{tag} indices", fused=False)
                   for *shape, tag in gemm_shapes]

@@ -14,8 +14,6 @@ packages, ranks NaN last (index ``len(b)``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -57,10 +55,7 @@ def bucketize_call(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{NAME}: unsupported device {x.device}")
     b = boundaries.contiguous()
     idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    fn = build.library(NAME).bucketize
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, ctypes.c_longlong, p]
+    fn = build.entry(NAME, "ppipqp")
     err = fn(x.data_ptr(), b.data_ptr(), nb, idx.data_ptr(), x.numel(),
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, NAME)

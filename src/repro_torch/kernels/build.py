@@ -7,6 +7,9 @@ Building happens at first use, never at import: a machine without ``nvcc``
 can import every module and run the plain versions on CPU tensors.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
+``entry`` loads a library and binds its C entry point once: ``argtypes``
+and ``restype`` are set on first use and the bound function is cached.
+
 Launch accounting lives here too: ``LAUNCHES[name]`` counts the times a
 wrapper launched its kernel, ``PLAIN_ON_CUDA[name]`` the times a plain
 version ran on a CUDA tensor (a run that should have gone through the
@@ -24,11 +27,12 @@ import shutil
 import subprocess
 import time
 from collections import Counter
+from collections.abc import Callable
 
 import torch
 
 __all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "SMS", "reset_counts", "build_all",
-           "library", "build_dir", "check", "tickets"]
+           "entry", "build_dir", "check", "tickets"]
 
 KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4", "paged_attn_bf16",
            "streaming_quantize_outlier", "lut_gemm", "bucketize")
@@ -38,7 +42,10 @@ PLAIN_ON_CUDA: Counter = Counter()
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
-_LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[str, Callable[..., int]] = {}
+# argument codes of ``entry``: pointer (and stream), int, float, long long
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "q": ctypes.c_longlong}
 SMS = 132  # streaming multiprocessors of an H100 SXM
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 BUILD_LOG: dict[str, str] = {}
@@ -100,16 +107,21 @@ def build_all(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing."""
-    lib = _LIBS.get(name)
-    if lib is None:
+def entry(name: str, args: str) -> Callable[..., int]:
+    """The C entry point ``name`` of kernel library ``name`` (built first if
+    missing), returning ``int``, with one argument per character of ``args``
+    (``p`` pointer or stream, ``i`` int, ``f`` float, ``q`` long long). Bound
+    on the first call and cached: later calls cost a dictionary lookup."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
         _, so = _target(name)
         if not so.exists():
             build_all([name])
-        lib = ctypes.CDLL(str(so))
-        _LIBS[name] = lib
-    return lib
+        fn = getattr(ctypes.CDLL(str(so)), name)  # the function keeps its library loaded
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[c] for c in args]
+        _ENTRIES[name] = fn
+    return fn
 
 
 def check(err: int, name: str) -> None:

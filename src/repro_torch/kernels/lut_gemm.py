@@ -22,7 +22,6 @@ versions ignore it.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -166,9 +165,12 @@ def check_blocks(blocks, name: str = NAME) -> tuple[int, int, int]:
     return bm, bn, bk
 
 
-def _launch(fn, name: str, args: list, m: int, n: int, k: int, blocks, device) -> torch.Tensor:
-    """Launch ``fn(*args, y, M, N, K, tile_m, tile_n, k_split, ws, tickets,
-    stream)`` with the tile ``blocks`` (None: :func:`default_blocks`)."""
+def _launch(name: str, sig: str, args: list, m: int, n: int, k: int, blocks,
+            device) -> torch.Tensor:
+    """Launch the C entry point ``name(*args, y, M, N, K, tile_m, tile_n,
+    k_split, ws, tickets, stream)`` (``sig``: the codes of ``args`` for
+    :func:`build.entry`) with the tile ``blocks`` (None:
+    :func:`default_blocks`)."""
     bm, bn, bk = check_blocks(blocks, name) if blocks else default_blocks(m, n, k)
     splits = max(1, math.ceil(k / bk))
     y = torch.empty((m, n), dtype=torch.float32, device=device)
@@ -177,12 +179,8 @@ def _launch(fn, name: str, args: list, m: int, n: int, k: int, blocks, device) -
     if splits > 1:
         ws = torch.empty((splits, m, n), dtype=torch.float32, device=device)
         tickets = build.tickets(device, stream, math.ceil(n / bn))
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.restype = ctypes.c_int
-        fn.argtypes = [*(p if isinstance(a, torch.Tensor) else i for a in args), p, i, i, i, i,
-                       i, i, p, p, p]
     ptr = lambda t: None if t is None else t.data_ptr()
+    fn = build.entry(name, sig + "piiiiiippp")
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), y.data_ptr(),
              m, n, k, bm, bn, bk, ptr(ws), ptr(tickets), stream)
     build.check(err, name)
@@ -224,7 +222,7 @@ def fused_lut_gemm(x, scale, w_packed, boundaries, a_book, w_book, *,
     _require(x.is_cuda, f"unsupported device {x.device}")
     args = [x, int(x.dtype == torch.bfloat16), scale, w_packed, int(byte_packed), boundaries,
             nb, int(mul_form), a_book, w_book, w_book.shape[0]]
-    return _launch(build.library(NAME).fused_lut_gemm, NAME, args, m, n, k, blocks, x.device)
+    return _launch(NAME, "pippipiippi", args, m, n, k, blocks, x.device)
 
 
 def lut_gemm(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False,
@@ -255,4 +253,4 @@ def lut_gemm(a_idx, w_packed, a_book, w_book, *, byte_packed: bool = False,
         return lut_gemm_plain(a_idx, w_packed, a_book, w_book, byte_packed=byte_packed)
     req(a_idx.is_cuda, f"unsupported device {a_idx.device}")
     args = [a_idx, w_packed, int(byte_packed), a_book, a_book.shape[0], w_book, w_book.shape[0]]
-    return _launch(build.library(INDEX).lut_gemm, INDEX, args, m, n, k, blocks, a_idx.device)
+    return _launch(INDEX, "ppipipi", args, m, n, k, blocks, a_idx.device)

@@ -26,8 +26,6 @@ so a launch never reads ``ctx_lens`` on the host.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -163,10 +161,7 @@ def paged_attn_int4(q, k_idx, k_scale, v_idx, v_scale, codebook, block_tables, c
                                       window=window)
     _require(q.is_cuda, f"unsupported device {q.device}")
     out = torch.empty_like(q)
-    fn = build.library(NAME).paged_attn_int4
-    fn.restype = ctypes.c_int
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 10 + [i] * 8 + [f, i, f, i, i, p, p, p]
+    fn = build.entry(NAME, "p" * 10 + "i" * 8 + "fifiippp")
     tail, _ws = _split_launch(q, bs, block_tables.shape[1])
     err = fn(q.data_ptr(), k_idx.data_ptr(), k_scale.data_ptr(), v_idx.data_ptr(),
              v_scale.data_ptr(), codebook.data_ptr(), block_tables.data_ptr(),
@@ -200,10 +195,7 @@ def paged_attn_bf16(q, pages_k, pages_v, block_tables, ctx_lens, q_pos, *,
                                 softcap=softcap, window=window)
     _require(q.is_cuda, f"unsupported device {q.device}", FLOAT)
     out = torch.empty_like(q)
-    fn = build.library(FLOAT).paged_attn_bf16
-    fn.restype = ctypes.c_int
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, p, p, p] + [i] * 8 + [f, i, f, i, i, p, p, p]
+    fn = build.entry(FLOAT, "pppipppp" + "i" * 8 + "fifiippp")
     tail, _ws = _split_launch(q, bs, block_tables.shape[1])
     err = fn(q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
              int(pages_k.dtype == torch.bfloat16), block_tables.data_ptr(), ctx_lens.data_ptr(),

@@ -12,12 +12,13 @@
   ``ref.streaming_quantize_outlier_ref``.
 
 The plain versions sort stably, so ties go to the lowest channel as
-``lax.top_k`` orders them.
+``lax.top_k`` orders them; -0.0 ties with +0.0 (the JAX Pallas kernel's
+order), and NaN ranks above +inf on the hi side and last on the lo side.
+The kernels select by :func:`order_key`, a 32-bit key monotone in that order
+(``csrc/topk_select.cuh``), and return x's own bits.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -26,10 +27,41 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bucketize import rank
 
 __all__ = ["topk_outlier_call", "topk_outlier_plain", "streaming_quantize_outlier_call",
-           "streaming_quantize_outlier_plain"]
+           "streaming_quantize_outlier_plain", "order_key", "smem_bytes"]
 
 NAME = "topk_outlier"
 STREAMING = "streaming_quantize_outlier"
+THREADS = 512  # threads of a row's block (csrc/topk_select.cuh)
+MAX_N = 65535  # the selection packs two per-row counts into one 32-bit word
+SMEM_LIMIT = 224 * 1024  # dynamic shared memory a block may take beside its static part
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' order key of float32 ``x`` (``topk_select.cuh::order_key``)
+    as int64 in [0, 2^32): the sign flip of the bits (``bits ^ 0x80000000``
+    for non-negative values, ``~bits`` for negative ones), with -0.0 mapped
+    onto +0.0 and every NaN onto 0xFFFFFFFF. Monotone in the plain version's
+    order: hi takes the largest keys, lo the smallest, ties to the lowest
+    channel."""
+    bits = x.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    key = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+    return torch.where(torch.isnan(x), 0xFFFFFFFF, key)
+
+
+def smem_bytes(n: int, k: int) -> int:
+    """Dynamic shared memory of one row's block (``topk_select.cuh::smem_bytes``):
+    the row's keys, ceil(n / THREADS) per thread at a padded stride, then two
+    lists of k 8-byte composites."""
+    per = -(-n // THREADS)
+    stride = THREADS + (1 if per >= 32 else 32 // per)
+    return -(-per * stride * 4 // 8) * 8 + 16 * k
+
+
+def _check_fits(name: str, n: int, k: int) -> None:
+    if n > MAX_N or smem_bytes(n, k) > SMEM_LIMIT:
+        raise ValueError(f"{name}: a row of N={n} with k={k} does not fit in shared memory "
+                         f"(N <= {MAX_N} and {smem_bytes(n, k)} bytes <= {SMEM_LIMIT})")
 
 
 def _dual_topk(x: torch.Tensor, k: int):
@@ -74,16 +106,12 @@ def topk_outlier_call(x: torch.Tensor, k: int):
         return topk_outlier_plain(x, k)
     if not x.is_cuda:
         raise ValueError(f"{NAME}: unsupported device {x.device}")
-    if n * 5 > 227 * 1024:
-        raise ValueError(f"{NAME}: a row of N={n} does not fit in shared memory")
+    _check_fits(NAME, n, k)
     hv = torch.empty((m, k), dtype=torch.float32, device=x.device)
     lv = torch.empty_like(hv)
     hi = torch.empty((m, k), dtype=torch.int32, device=x.device)
     li = torch.empty_like(hi)
-    fn = build.library(NAME).topk_outlier
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, i, p, p, p, p, p]
+    fn = build.entry(NAME, "piiippppp")
     err = fn(x.data_ptr(), m, n, k, hv.data_ptr(), hi.data_ptr(), lv.data_ptr(),
              li.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, NAME)
@@ -116,17 +144,13 @@ def streaming_quantize_outlier_call(x: torch.Tensor, scale: torch.Tensor,
         return streaming_quantize_outlier_plain(x, scale, boundaries, k, mul_form=mul_form)
     if not x.is_cuda:
         raise ValueError(f"{STREAMING}: unsupported device {x.device}")
-    if n * 5 > 227 * 1024:
-        raise ValueError(f"{STREAMING}: a row of N={n} does not fit in shared memory")
+    _check_fits(STREAMING, n, k)
     idx = torch.empty((m, n), dtype=torch.int32, device=x.device)
     hv = torch.empty((m, k), dtype=torch.float32, device=x.device)
     lv = torch.empty_like(hv)
     hi = torch.empty((m, k), dtype=torch.int32, device=x.device)
     li = torch.empty_like(hi)
-    fn = build.library(STREAMING).streaming_quantize_outlier
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+    fn = build.entry(STREAMING, "pppiiiiipppppp")
     err = fn(x.data_ptr(), scale.data_ptr(), boundaries.data_ptr(), nb, int(mul_form), m, n, k,
              idx.data_ptr(), hv.data_ptr(), hi.data_ptr(), lv.data_ptr(), li.data_ptr(),
              torch.cuda.current_stream(x.device).cuda_stream)

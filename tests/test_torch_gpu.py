@@ -89,11 +89,47 @@ def test_lut_gemm_tiles_equal_on_exact_sums(dev, blocks, byte):
     assert torch.equal(lut_gemm(idx, w, ab, wb, byte_packed=byte, blocks=blocks), got)
 
 
+def _special_rows(m, n, k, seed, dev):
+    """Half-integer rows (runs of equal values across the k-th place on both
+    sides) with, per row, up to k + 1 NaN of each sign bit, up to 3k -0.0 and
+    up to k of each infinity at random channels; row 0 is all -0.0, row 1
+    all NaN with the sign bit set."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    neg_nan = np.array([0xFFC00001], np.uint32).view(np.float32)[0]
+    x = (rng.randint(-3, 4, (m, n)) * 0.5).astype(np.float32)
+    for r in range(m):
+        for v, most in ((np.nan, k + 1), (neg_nan, k + 1), (-0.0, 3 * k), (np.inf, k),
+                        (-np.inf, k)):
+            x[r, rng.randint(0, n, rng.randint(0, most + 1))] = v
+    x[0] = -0.0
+    x[1 % m] = neg_nan
+    return torch.from_numpy(x).to(dev)
+
+
+def _same(got, want):
+    """torch.equal on integers; float32 bit for bit, every NaN equal to every NaN."""
+    if got.dtype != torch.float32:
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(got.view(torch.int32)[~nan],
+                                                          want.view(torch.int32)[~nan])
+
+
 @pytest.mark.parametrize("m,n,k,kind", [
     (72, 2048, 10, "normal"), (72, 8192, 41, "normal"), (72, 2047, 10, "normal"),
     (16, 2048, 10, "duplicates"), (4, 512, 7, "equal"), (3, 11008, 55, "normal"),
+    (72, 2048, 10, "specials"), (72, 8192, 41, "specials"), (8, 2047, 10, "specials"),
+    (3, 11008, 55, "specials"), (4, 512, 512, "duplicates"), (4, 512, 512, "specials"),
+    (2, 2048, 2048, "normal"),
 ])
 def test_topk_kernel_vs_plain_exact(dev, m, n, k, kind):
+    """Channels exact, values bit for bit (NaN equal to NaN), against the
+    plain version on the CPU and, on rows without NaN, on the card (CUDA's
+    torch.sort orders NaN by their bits, a NaN with the sign bit set below
+    -inf; the CPU's ranks every NaN alike, as the kernel does); two launches
+    bit-equal."""
     from repro_torch.kernels.topk_outlier import topk_outlier_call, topk_outlier_plain
 
     g = torch.Generator(device=dev).manual_seed(n + k)
@@ -101,10 +137,15 @@ def test_topk_kernel_vs_plain_exact(dev, m, n, k, kind):
         x = torch.randn((m, n), generator=g, device=dev)
     elif kind == "duplicates":
         x = torch.randint(-3, 4, (m, n), generator=g, device=dev).float()
-    else:
+    elif kind == "equal":
         x = torch.full((m, n), 0.5, device=dev)
-    for got, want in zip(topk_outlier_call(x, k), topk_outlier_plain(x, k)):
-        assert torch.equal(got, want)
+    else:
+        x = _special_rows(m, n, k, n + k, dev)
+    got = topk_outlier_call(x, k)
+    again = topk_outlier_call(x, k)
+    for a, b, c, d in zip(got, topk_outlier_plain(x, k), topk_outlier_plain(x.cpu(), k), again):
+        assert _same(a.cpu(), c) and _same(a, d)
+        assert kind == "specials" or _same(a, b)
 
 
 @pytest.mark.parametrize("b,s,softcap,window", [(72, 1, 0.0, 0), (9, 4, 20.0, 40)])
@@ -168,11 +209,13 @@ def test_paged_attn_float_kernel_vs_plain(dev, b, s, softcap, window, page_dtype
     assert torch.isfinite(out).all()
 
 
-def _rows(kind, m, n, g, dev):
+def _rows(kind, m, n, k, g, dev):
     if kind == "normal":
         return torch.randn((m, n), generator=g, device=dev) * 2
     if kind == "duplicates":
         return torch.randint(-3, 4, (m, n), generator=g, device=dev).float()
+    if kind == "specials":
+        return _special_rows(m, n, k, n + k, dev)
     x = torch.full((m, n), 0.5, device=dev)  # all-equal rows, one with +-inf
     x[0, 3], x[0, 7] = float("inf"), float("-inf")
     return x
@@ -181,9 +224,14 @@ def _rows(kind, m, n, g, dev):
 @pytest.mark.parametrize("mul_form", [False, True])
 @pytest.mark.parametrize("m,n,k,kind", [
     (72, 2048, 10, "normal"), (72, 8192, 41, "normal"), (72, 2047, 10, "normal"),
-    (16, 2048, 10, "duplicates"), (4, 512, 7, "equal"),
+    (16, 2048, 10, "duplicates"), (4, 512, 7, "equal"), (3, 11008, 55, "normal"),
+    (72, 2048, 10, "specials"), (72, 8192, 41, "specials"), (8, 2047, 10, "specials"),
+    (4, 512, 512, "duplicates"), (4, 512, 512, "specials"),
 ])
 def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
+    """Indices and channels exact, values bit for bit (NaN equal to NaN),
+    against the plain version on the CPU and, on rows without NaN, on the
+    card (see the top-k test); two launches bit-equal; one launch per call."""
     from repro_torch.core.codebook import boundaries_from_centroids
     from repro_torch.kernels import build
     from repro_torch.kernels.topk_outlier import (streaming_quantize_outlier_call,
@@ -191,7 +239,7 @@ def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
     from repro_torch.models.model import _default_codebook
 
     g = torch.Generator(device=dev).manual_seed(n + k)
-    x = _rows(kind, m, n, g, dev)
+    x = _rows(kind, m, n, k, g, dev)
     if mul_form:  # the mul form serves bfloat16 activations
         x = x.to(torch.bfloat16).float()
     s = x.square().mean(-1, keepdim=True).sqrt().clamp(min=1e-12)
@@ -199,11 +247,15 @@ def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
     bounds = boundaries_from_centroids(_default_codebook(4, device=dev)).contiguous()
     launches = build.LAUNCHES["streaming_quantize_outlier"]
     got = streaming_quantize_outlier_call(x, s, bounds, k, mul_form=mul_form)
-    want = streaming_quantize_outlier_plain(x, s, bounds, k, mul_form=mul_form)
     torch.cuda.synchronize()
     assert build.LAUNCHES["streaming_quantize_outlier"] == launches + 1
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    again = streaming_quantize_outlier_call(x, s, bounds, k, mul_form=mul_form)
+    want = streaming_quantize_outlier_plain(x, s, bounds, k, mul_form=mul_form)
+    want_cpu = streaming_quantize_outlier_plain(x.cpu(), s.cpu(), bounds.cpu(), k,
+                                                mul_form=mul_form)
+    for a, b, c, d in zip(got, want, want_cpu, again):
+        assert _same(a.cpu(), c) and _same(a, d)
+        assert kind == "specials" or _same(a, b)
 
 
 @pytest.mark.parametrize("m,k,n,byte", [
