@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
               Orizuru kernels exactly, bit for bit between two launches, also
               on rows of NaN of both signs, +-0 and +-inf (``specials``), at
               k = N and at N = 11008; the top-k, streaming and bucketize
-              yardsticks with their device times too.
+              yardsticks with their device times too. Bucketize at A4 and
+              A8 on 72 and 1024 rows, a ragged size and a view off 16-byte
+              alignment, with ``Tensor.copy_`` of the same bytes as floor.
 4. model   -- a 2-layer, full-width llama3_2_1b: one packed serving step on
               the card against the same step on the CPU (plain versions),
               for three seeds, on the fused route (int4 KV) and on path A
@@ -43,6 +45,13 @@ Phases, each printing one JSON line:
               checks (the index LUT-GEMM within its float32 bound of the
               factorized form at the quickstart's shape), and the index
               LUT-GEMM and bucketize kernels launched.
+7. trained_parity -- the committed JAX-trained oasis_7b smoke artifact
+              served by the port on the fused route with the int4 pool:
+              first tokens equal JAX's, first packed step's logits within
+              0.1 rel L2 of JAX's, every kernel launched, no plain route.
+8. demotion -- A5/A8 activations on the kernel GEMM routes and kernel
+              detection under static thresholds run on CUDA tensors as
+              counted fallbacks, as JAX demotes them.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -74,6 +83,16 @@ TPU_KERNELS = {
     "bucketize": "src/repro/kernels/bucketize.py:37",
 }
 ROWS = 72  # token budget of the serving phase: 8 slots + 64 prefill tokens
+# (M, K, boundaries, case, offset of x in a larger buffer)
+BUCKETIZE_CASES = [
+    (ROWS, 2048, 15, "72x2048 A4"),
+    (ROWS, 8192, 15, "72x8192 A4"),
+    (ROWS, 8192, 255, "72x8192 A8"),
+    (1024, 8192, 15, "1024x8192 A4"),
+    (1024, 8192, 255, "1024x8192 A8"),
+    (37, 2047, 15, "37x2047 A4 ragged (numel % 4 = 3)"),
+    (ROWS, 2047, 15, "72x2047 A4 unaligned view", 1),
+]
 
 
 def emit(phase: str, **kw) -> None:
@@ -105,7 +124,7 @@ def cuda_ms(fns, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fns, reps: int, tries: int = 3) -> float | None:
+def device_ms(fns, reps: int, tries: int = 5) -> float | None:
     """Device ms per call over the same loop as ``cuda_ms``, from the
     profiler's kernel events: the kernels' own time without the gaps between
     launches. Each call launches at least one kernel, so a profile whose
@@ -321,14 +340,11 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
     """Orizuru's dual top-k kernel or, with ``mul_form`` set, the streaming
     quantize + detect kernel (indices in that compare form, then the same
     top-k), equal to its plain version given the same scale: indices and
-    channels exactly, values bit for bit with NaN equal to NaN, on the CPU
-    and, on rows without NaN, on the card; two launches must give the same
-    bits. Kinds: ``normal``, ``duplicates``, ``equal`` rows (one with +-inf)
-    and ``specials`` (:func:`special_rows`). On rows with NaN the plain
-    version on the card is no oracle: CUDA's ``torch.sort`` orders NaN by
-    their bits (a NaN with the sign bit set below -inf), the CPU's ranks
-    every NaN alike, above +inf, as the kernels do; ``exact`` reports the
-    card's agreement there."""
+    channels exactly, values bit for bit with NaN equal to NaN, on the card
+    and on the CPU; two launches must give the same bits. Kinds: ``normal``,
+    ``duplicates``, ``equal`` rows (one with +-inf) and ``specials``
+    (:func:`special_rows`). The plain version sorts the kernels' order key,
+    so it ranks every NaN alike, above +inf, on both devices."""
     import torch
 
     from repro_torch.core.codebook import boundaries_from_centroids
@@ -379,7 +395,7 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
     exact = all(same(a, b) for a, b in zip(got, want))
     exact_cpu = all(same(a.cpu(), b) for a, b in zip(got, want_cpu))
     repeat_equal = all(same(a, b) for a, b in zip(got, again))
-    ok = exact_cpu and repeat_equal and (exact or kind == "specials")
+    ok = exact and exact_cpu and repeat_equal
     x_bytes = m * n * 4 * (2 if streaming else 1)  # streaming: x in, indices out
     sets = [inputs() for _ in range(copies_for(x_bytes))]
     ms = cuda_ms([lambda t=t: kern(t) for t in sets], reps)
@@ -536,37 +552,68 @@ def attn_case(dev, gen, b, s, tag, pages="int4", softcap=0.0, window=0, reps=50,
     return res
 
 
-def bucketize_case(dev, gen, m, k, tag, reps=100):
-    """The Clustering-Unit kernel, ``torch.equal`` to its plain version, on
-    values that include the boundaries themselves, +-inf and NaN."""
-    import torch
-
+def bucketize_bounds(n_bounds: int, dev):
+    """The sorted boundaries of the Gaussian codebook with n_bounds + 1 entries."""
     from repro_torch.core.codebook import boundaries_from_centroids
-    from repro_torch.kernels.bucketize import bucketize_call, bucketize_plain
     from repro_torch.models.model import _default_codebook
 
-    bounds = boundaries_from_centroids(_default_codebook(4, device=dev)).contiguous()
+    bits = (n_bounds + 1).bit_length() - 1
+    bounds = boundaries_from_centroids(_default_codebook(bits, device=dev)).contiguous()
+    assert bounds.numel() == n_bounds
+    return bounds
 
-    def inputs():
-        x = torch.randn((m, k), generator=gen, device=dev) * 2
-        x[0, :5] = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, float("nan")])
-        x[1, :15] = bounds
-        return x.contiguous()
 
+def bucketize_inputs(gen, m, k, bounds, offset=0):
+    """(m, k) activations (std 2) with +-inf, +-0, NaN and every boundary,
+    ``offset`` floats into a larger buffer."""
+    import torch
+
+    buf = torch.randn(m * k + offset, generator=gen, device=bounds.device) * 2
+    flat = buf[offset:]
+    flat[:5] = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, float("nan")])
+    flat[-bounds.numel():] = bounds
+    return flat.view(m, k)
+
+
+def bucketize_case(dev, gen, m, k, n_bounds, tag, offset=0, reps=100):
+    """The Clustering-Unit kernel, ``torch.equal`` to its plain version on the
+    card and on the CPU, over the sorted boundaries of the Gaussian codebook
+    with ``n_bounds + 1`` entries (15: A4, 255: A8), on values that include
+    every boundary, +-0, +-inf and NaN. ``offset`` puts x that many floats
+    into a larger buffer, off its 16-byte alignment. Times: the kernel, its
+    plain version, ``torch.bucketize`` (the yardstick) and ``Tensor.copy_``
+    over the same 8 bytes per value, the practical floor at that size. The
+    bound counts 8 bytes per value and the boundaries, and the compares a
+    search needs, ceil(log2(n_bounds + 1)) per value."""
+    import torch
+
+    from repro_torch.kernels.bucketize import bucketize_call, bucketize_plain
+
+    bounds = bucketize_bounds(n_bounds, dev)
+    inputs = lambda: bucketize_inputs(gen, m, k, bounds, offset)
     x = inputs()
-    ok = torch.equal(bucketize_call(x, bounds), bucketize_plain(x, bounds))
+    got = bucketize_call(x, bounds)
+    exact = torch.equal(got, bucketize_plain(x, bounds))
+    exact_cpu = torch.equal(got.cpu(), bucketize_plain(x.cpu(), bounds.cpu()))
     torch.cuda.synchronize()
+    ok = exact and exact_cpu
     sets = [inputs() for _ in range(copies_for(m * k * 8))]
-    ms = cuda_ms([lambda t=t: bucketize_call(t, bounds) for t in sets], reps)
-    dev_ms = device_ms([lambda t=t: bucketize_call(t, bounds) for t in sets], reps)
+    kern_fns = [lambda t=t: bucketize_call(t, bounds) for t in sets]
+    ms = cuda_ms(kern_fns, reps)
+    dev_ms = device_ms(kern_fns, reps)
     plain_ms = cuda_ms([lambda t=t: bucketize_plain(t, bounds) for t in sets[:2]], 10)
     lib_fns = [lambda t=t: torch.bucketize(t, bounds, right=True) for t in sets]
     lib_ms = cuda_ms(lib_fns, reps)
     lib_dev_ms = device_ms(lib_fns, reps)
-    b_ms, b_by = bound(m * k * 8 + 15 * 4, m * k * 15.0)
-    res = dict(case=tag, M=m, K=k, exact=ok, max_abs_err=0.0 if ok else float("inf"), ok=ok,
+    dst = torch.empty_like(sets[0])
+    copy_dev_ms = device_ms([lambda t=t: dst.copy_(t) for t in sets], reps)
+    compares = math.ceil(math.log2(n_bounds + 1))
+    b_ms, b_by = bound(m * k * 8 + n_bounds * 4, m * k * float(compares))
+    res = dict(case=tag, M=m, K=k, n_bounds=n_bounds, offset=offset, exact=exact,
+               exact_cpu=exact_cpu, max_abs_err=0.0 if ok else float("inf"), ok=ok,
                kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-               library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+               library_device_ms=lib_dev_ms, copy_device_ms=copy_dev_ms, bound_ms=b_ms,
+               bound_by=b_by)
     emit("kernel_bucketize", **res)
     return res
 
@@ -634,10 +681,7 @@ def phase_kernels(dev):
     ]
     index_gemm = [gemm_case(dev, gen, *shape, f"{tag} indices", fused=False)
                   for *shape, tag in gemm_shapes]
-    bucketize = [
-        bucketize_case(dev, gen, ROWS, 2048, "72x2048 A4"),
-        bucketize_case(dev, gen, ROWS, 8192, "72x8192 A4"),
-    ]
+    bucketize = [bucketize_case(dev, gen, *case) for case in BUCKETIZE_CASES]
     # (cases, index of the case whose numbers the kernels line carries)
     return {"fused_lut_gemm": (gemm, 2), "topk_outlier": (topk, 1),
             "paged_attn_int4": (attn["int4"], 0), "paged_attn_bf16": (attn[bf] + attn[f32], 0),
@@ -937,6 +981,122 @@ def phase_quickstart(dev) -> tuple[bool, dict, float]:
     return ok, launches, got["err_kernel"]
 
 
+def phase_trained_parity(dev) -> bool:
+    """Phase 7: parity on trained weights against JAX's own tokens. The port
+    loads the committed JAX-trained artifact (``tests/fixtures/
+    trained_oasis_smoke``: the oasis_7b smoke byte-LM, 200 steps, W4A4 +
+    W8 ``mlp/wd`` + dynamic outliers + int4 KV; ``tests/test_torch_trained.py``
+    made it) on the card and serves the five byte prompts on the fused route
+    with the recorded ``ServeConfig`` fields, every count set to 0 first.
+    Then the JAX engine's first packed step (its recorded inputs, fresh
+    pools) against JAX's logits. Passes when each fused-route kernel launched
+    exactly 6 (LUT-GEMM, top-k) or 1 (attention) times per layer and step,
+    no plain version ran on a CUDA tensor, the first-step rel L2 is under the
+    model phase's float32 bound (0.1) and every prompt's first generated
+    token is JAX's. The common prefix with JAX's 24 tokens is reported per
+    prompt, not gated: the card sums in other orders, and an A4 index flip
+    can move a later greedy token."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core.kernel_routing as kr
+    from repro_torch.core.artifact import load_quantized
+    from repro_torch.kernels import build as kb
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.speculative import make_packed_fn
+
+    fixture = ROOT / "tests" / "fixtures" / "trained_oasis_smoke"
+    with np.load(fixture / "expected.npz") as z:
+        exp = {k: z[k] for k in z.files}
+    want = exp["tokens"].tolist()
+    prompts = [list(p.encode()) for p in exp["prompts"]]
+    art = load_quantized(str(fixture), device=dev)
+    sc = ServeConfig.from_spec(art.spec, **json.loads(str(exp["serve_config"])))
+    engine = ServingEngine(art.model, art.params, sc, batch_slots=int(exp["batch_slots"]))
+    kb.reset_counts()
+    kr.reset()
+    got = engine.generate(prompts, max_new_tokens=len(want[0]))
+    torch.cuda.synchronize()
+    steps, layers = engine.stats["packed_steps"], art.model.cfg.n_layers
+    per_step = {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1}
+    launches = {k: kb.LAUNCHES[k] for k in kb.KERNELS}
+    expected = {k: per_step.get(k, 0) * layers * steps for k in kb.KERNELS}
+    plain = dict(kb.PLAIN_ON_CUDA)
+    fallbacks = kr.fallback_count() + kr.detect_fallback_count()
+    prefix = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), len(w))
+              for g, w in zip(got, want)]
+
+    pools = art.model.init_caches(engine.slots, sc.cache_len, sc.cache_dtype,
+                                  quantized=sc.kv_quant, block_size=sc.block_size, device=dev)
+    step_in = [torch.from_numpy(exp[k]).to(dev) for k in ("bt", "slot_ids", "pos", "ctx", "tok")]
+    _, logits = make_packed_fn(art.model)(art.params, pools, *step_in)
+    valid = torch.from_numpy(exp["pos"][:, 0] >= 0)
+    on_card = logits[:, 0].float().cpu()[valid]
+    ref = torch.from_numpy(exp["first_step_logits"])[:, 0][valid]
+    rel = (torch.linalg.vector_norm(on_card - ref) / torch.linalg.vector_norm(ref)).item()
+    agree = (on_card.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    ok = (launches == expected and not any(plain.values()) and fallbacks == 0
+          and bool(torch.isfinite(on_card).all()) and rel < 0.1
+          and all(g[0] == w[0] for g, w in zip(got, want)))
+    emit("trained_parity", arch=art.model.cfg.arch_id, layers=layers,
+         d_model=art.model.cfg.d_model, prompts=list(map(str, exp["prompts"])),
+         new_tokens=len(want[0]), common_prefix=prefix, tokens_equal=got == want,
+         first_token_equal=[g[0] == w[0] for g, w in zip(got, want)],
+         first_step_rel_l2=rel, first_step_argmax_agreement=agree,
+         first_step_cells=int(valid.sum()), packed_steps=steps, launches=launches,
+         expected_launches=expected, fallbacks=fallbacks, plain_on_cuda=plain, ok=ok)
+    return ok
+
+
+def phase_demotions(dev) -> bool:
+    """Phase 8: the configurations that have no kernel in either package,
+    demoted to plain code on CUDA tensors as JAX demotes them: A5 and A8
+    activation codebooks on the kernel GEMM routes (``pallas``, and ``auto``,
+    which resolves to the kernel on the card) and kernel detection under
+    static thresholds, on one llama3_2_1b-wide layer (2048 x 2048, 72 rows).
+    Passes when each records the expected fallback counts, dynamic detection
+    still launches the detection-only top-k kernel, no plain version of a
+    kernel ran on a CUDA tensor, and the output is finite."""
+    import warnings
+
+    import torch
+
+    import repro_torch.core.kernel_routing as kr
+    from repro_torch.core.qlinear import QLinear, QLinearConfig, quantize_linear
+    from repro_torch.kernels import build as kb
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = torch.randn((2048, 2048), generator=gen, device=dev) * 0.02
+    calib = torch.randn((256, 2048), generator=gen, device=dev)
+    x = torch.randn((ROWS, 2048), generator=gen, device=dev)
+    cases = [  # (overrides, GEMM fallbacks, detection fallbacks, top-k launches)
+        (dict(a_bits=5, detection="dynamic", kernel="pallas"), 1, 0, 1),
+        (dict(a_bits=8, detection="dynamic", kernel="auto"), 1, 0, 1),
+        (dict(a_bits=8, detection="static", detect_kernel="pallas"), 1, 1, 0),
+        (dict(detection="static", kernel="jnp", detect_kernel="pallas"), 0, 1, 0),
+    ]
+    ok_all = True
+    for overrides, fb, dfb, topk in cases:
+        mod = QLinear(quantize_linear(w, calib, QLinearConfig(**overrides)))
+        kr.reset()
+        kb.reset_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # the demotions' own warnings
+            y = mod(x)
+        torch.cuda.synchronize()
+        counts = dict(fallbacks=kr.fallback_count(), detect_fallbacks=kr.detect_fallback_count(),
+                      gemm_kernel=kr.kernel_calls(), gemm_plain=kr.jnp_calls(),
+                      launches=dict(kb.LAUNCHES), plain_on_cuda=dict(kb.PLAIN_ON_CUDA))
+        ok = (counts["fallbacks"] == fb and counts["detect_fallbacks"] == dfb
+              and counts["gemm_kernel"] == 0 and kb.LAUNCHES["topk_outlier"] == topk
+              and kb.LAUNCHES["fused_lut_gemm"] == 0 and not any(kb.PLAIN_ON_CUDA.values())
+              and bool(torch.isfinite(y).all()))
+        emit("demotion", config=overrides, expected_fallbacks=fb,
+             expected_detect_fallbacks=dfb, expected_topk_launches=topk, **counts, ok=ok)
+        ok_all &= ok
+    return ok_all
+
+
 def phase_profile(phase: str, engine, vocab: int) -> None:
     """Where a serving step's time goes: ``torch.profiler`` over a short
     extra run (4 requests, 8 new tokens) on a serve phase's engine."""
@@ -1005,6 +1165,10 @@ def main() -> int:
     ok, launches_qs, qs_err = phase_quickstart(dev)
     if not ok:
         failures.append("quickstart")
+    if not phase_trained_parity(dev):
+        failures.append("trained parity")
+    if not phase_demotions(dev):
+        failures.append("demotions")
 
     # each kernel's launches on the path that runs it
     path_launches = {**{k: launches[k] for k in ("fused_lut_gemm", "topk_outlier",
@@ -1028,6 +1192,11 @@ def main() -> int:
             "device_ms": rep.get("kernel_device_ms"),
             "library_device_ms": rep.get("library_device_ms"),
         })
+        if k == "bucketize":  # every case: device ms against its bound and floor
+            kernels[-1]["cases"] = [
+                {key: c[key] for key in ("case", "exact", "kernel_device_ms", "bound_ms",
+                                         "library_device_ms", "copy_device_ms")}
+                for c in cases]
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1

@@ -6,7 +6,9 @@ residuals ``r = x - q(x)`` and adds ``r @ W~[channels, :]``.
 
 Tie order is part of the contract: among equal values the lowest channel
 wins (``lax.top_k``). ``torch.topk`` does not promise that order, so the
-plain detection sorts stably.
+plain detection sorts stably, on :func:`order_key`: CUDA's ``torch.sort``
+orders NaN by their bits where the CPU's ranks them alike, and the key
+gives both devices (and the Orizuru kernels) one order.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.core.quantize import (
 __all__ = [
     "OutlierSet",
     "num_outliers",
+    "order_key",
     "stable_topk",
     "detect_outliers_topk",
     "detect_outliers_static",
@@ -51,11 +54,26 @@ def num_outliers(k_channels: int, frac: float) -> int:
     return max(1, int(round(k_channels * frac)))
 
 
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The Orizuru kernels' order key of float32 ``x``
+    (``csrc/topk_select.cuh::order_key``) as int64 in [0, 2^32): the sign
+    flip of the bits (``bits ^ 0x80000000`` for non-negative values,
+    ``~bits`` for negative ones), with -0.0 mapped onto +0.0 and every NaN
+    onto 0xFFFFFFFF. Monotone in the detection order: hi takes the largest
+    keys, lo the smallest, ties to the lowest channel."""
+    bits = x.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    key = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+    return torch.where(torch.isnan(x), 0xFFFFFFFF, key)
+
+
 def stable_topk(x: torch.Tensor, k: int, largest: bool = True):
     """``lax.top_k`` semantics: k extreme values along the last axis, ties
-    broken by the lowest index (a stable sort, then the first k)."""
-    v, i = torch.sort(x, dim=-1, descending=largest, stable=True)
-    return v[..., :k], i[..., :k].int()
+    broken by the lowest index (a stable sort of :func:`order_key`, then the
+    first k, the values read back from ``x``)."""
+    _, i = torch.sort(order_key(x), dim=-1, descending=largest, stable=True)
+    i = i[..., :k]
+    return torch.gather(x, -1, i), i.int()
 
 
 def detect_outliers_topk(x: torch.Tensor, k: int) -> OutlierSet:

@@ -14,10 +14,13 @@ activations. On the fused route the residuals are recomputed from the
 gathered outlier values (``outlier_residuals_direct``), so no activation
 index matrix is ever materialised.
 
-Where the JAX package demotes a kernel route to plain code (activation
-codebooks above 16 entries, a kernel detection route under static
-detection) the port does the same on CPU tensors only; on the card those
-two configurations raise ``NotImplementedError``.
+Where the JAX package demotes a kernel route to plain code the port does
+the same, on every device, counted and warned once: activation codebooks
+above 16 entries take the plain GEMM route (the fused kernel's in-tile
+bucketize stops at A4; dynamic detection still launches the detection-only
+top-k kernel), and a kernel detection route under static detection scores
+against the thresholds in plain code. No kernel exists for either in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -171,14 +174,6 @@ def _tokens(x: torch.Tensor) -> int:
     return math.prod(x.shape[:-1]) if x.ndim > 1 else 1
 
 
-def _no_kernel(x: torch.Tensor, tier: str, what: str) -> None:
-    """Plain code stands in for a missing kernel only on CPU tensors."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"tier {tier} on {x.device}: {what}, and no CUDA kernel is ported for it; "
-            "choose a supported route or run on the CPU")
-
-
 def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
                   cfg: QLinearConfig | None = None) -> torch.Tensor:
     """Dual-branch forward; the output dtype follows ``x``."""
@@ -192,10 +187,8 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
 
     route = kr.resolve_route(cfg.kernel, cfg.use_kernel, x.device)
     if route == "pallas" and a_nbits > 4:
-        reason = (f"activation codebook has 2^{a_nbits} entries (> 16); "
-                  "fused bucketize supports a_bits <= 4")
-        _no_kernel(x, tier, reason)
-        kr.record_fallback(tier, reason)
+        kr.record_fallback(tier, f"activation codebook has 2^{a_nbits} entries (> 16); "
+                                 "fused bucketize supports a_bits <= 4")
         route = "jnp"
     kr.record_dispatch(tier, route)
 
@@ -209,11 +202,10 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
         else:
             detect_route = "jnp"
             if cfg.detect_kernel == "pallas":
-                reason = (f"detection={cfg.detection!r} scores against static "
+                kr.record_detect_fallback(
+                    tier, f"detection={cfg.detection!r} scores against static "
                           "thresholds (no top-k tournament); only 'dynamic' "
                           "routes to the Orizuru kernel")
-                _no_kernel(x, tier, reason)
-                kr.record_detect_fallback(tier, reason)
             else:
                 kr.record_detect_dispatch(tier, "jnp")
 

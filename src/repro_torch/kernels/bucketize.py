@@ -54,7 +54,10 @@ def bucketize_call(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         raise ValueError(f"{NAME}: unsupported device {x.device}")
     b = boundaries.contiguous()
-    idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    # idx at x's offset modulo 128 bytes, so the kernel's 16-byte loads and
+    # stores line up and fill whole lines (x may be a view into a larger buffer)
+    off = x.data_ptr() % 128 // 4
+    idx = torch.empty(x.numel() + off, dtype=torch.int32, device=x.device)[off:].view(x.shape)
     fn = build.entry(NAME, "ppipqp")
     err = fn(x.data_ptr(), b.data_ptr(), nb, idx.data_ptr(), x.numel(),
              torch.cuda.current_stream(x.device).cuda_stream)

@@ -11,17 +11,19 @@
   :func:`streaming_quantize_outlier_plain` is the port of
   ``ref.streaming_quantize_outlier_ref``.
 
-The plain versions sort stably, so ties go to the lowest channel as
-``lax.top_k`` orders them; -0.0 ties with +0.0 (the JAX Pallas kernel's
-order), and NaN ranks above +inf on the hi side and last on the lo side.
-The kernels select by :func:`order_key`, a 32-bit key monotone in that order
-(``csrc/topk_select.cuh``), and return x's own bits.
+The plain versions sort :func:`order_key` (``core/outlier.py``) stably,
+so ties go to the lowest channel as ``lax.top_k`` orders them; -0.0 ties
+with +0.0 (the JAX Pallas kernel's order), and every NaN ranks above +inf
+on the hi side and last on the lo side, on every device. The kernels select
+by the same 32-bit key (``csrc/topk_select.cuh``), and both return x's own
+bits.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.outlier import order_key, stable_topk
 from repro_torch.core.quantize import bucketize_mul_form
 from repro_torch.kernels import build
 from repro_torch.kernels.bucketize import rank
@@ -34,19 +36,6 @@ STREAMING = "streaming_quantize_outlier"
 THREADS = 512  # threads of a row's block (csrc/topk_select.cuh)
 MAX_N = 65535  # the selection packs two per-row counts into one 32-bit word
 SMEM_LIMIT = 224 * 1024  # dynamic shared memory a block may take beside its static part
-
-
-def order_key(x: torch.Tensor) -> torch.Tensor:
-    """The kernels' order key of float32 ``x`` (``topk_select.cuh::order_key``)
-    as int64 in [0, 2^32): the sign flip of the bits (``bits ^ 0x80000000``
-    for non-negative values, ``~bits`` for negative ones), with -0.0 mapped
-    onto +0.0 and every NaN onto 0xFFFFFFFF. Monotone in the plain version's
-    order: hi takes the largest keys, lo the smallest, ties to the lowest
-    channel."""
-    bits = x.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
-    bits = torch.where(bits == 0x80000000, 0, bits)
-    key = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
-    return torch.where(torch.isnan(x), 0xFFFFFFFF, key)
 
 
 def smem_bytes(n: int, k: int) -> int:
@@ -67,9 +56,7 @@ def _check_fits(name: str, n: int, k: int) -> None:
 def _dual_topk(x: torch.Tensor, k: int):
     if not 1 <= k <= x.shape[-1]:
         raise ValueError(f"k={k} must be in [1, N={x.shape[-1]}]")
-    hv, hi = torch.sort(x, dim=-1, descending=True, stable=True)
-    lv, li = torch.sort(x, dim=-1, stable=True)
-    return hv[..., :k], hi[..., :k].int(), lv[..., :k], li[..., :k].int()
+    return (*stable_topk(x, k, largest=True), *stable_topk(x, k, largest=False))
 
 
 def topk_outlier_plain(x: torch.Tensor, k: int):

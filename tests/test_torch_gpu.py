@@ -126,9 +126,8 @@ def _same(got, want):
 ])
 def test_topk_kernel_vs_plain_exact(dev, m, n, k, kind):
     """Channels exact, values bit for bit (NaN equal to NaN), against the
-    plain version on the CPU and, on rows without NaN, on the card (CUDA's
-    torch.sort orders NaN by their bits, a NaN with the sign bit set below
-    -inf; the CPU's ranks every NaN alike, as the kernel does); two launches
+    plain version on the CPU and on the card (both sort on the kernels'
+    order key, so every NaN ranks alike on both devices); two launches
     bit-equal."""
     from repro_torch.kernels.topk_outlier import topk_outlier_call, topk_outlier_plain
 
@@ -145,7 +144,7 @@ def test_topk_kernel_vs_plain_exact(dev, m, n, k, kind):
     again = topk_outlier_call(x, k)
     for a, b, c, d in zip(got, topk_outlier_plain(x, k), topk_outlier_plain(x.cpu(), k), again):
         assert _same(a.cpu(), c) and _same(a, d)
-        assert kind == "specials" or _same(a, b)
+        assert _same(a, b)
 
 
 @pytest.mark.parametrize("b,s,softcap,window", [(72, 1, 0.0, 0), (9, 4, 20.0, 40)])
@@ -230,8 +229,8 @@ def _rows(kind, m, n, k, g, dev):
 ])
 def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
     """Indices and channels exact, values bit for bit (NaN equal to NaN),
-    against the plain version on the CPU and, on rows without NaN, on the
-    card (see the top-k test); two launches bit-equal; one launch per call."""
+    against the plain version on the CPU and on the card (see the top-k
+    test); two launches bit-equal; one launch per call."""
     from repro_torch.core.codebook import boundaries_from_centroids
     from repro_torch.kernels import build
     from repro_torch.kernels.topk_outlier import (streaming_quantize_outlier_call,
@@ -255,7 +254,7 @@ def test_streaming_kernel_vs_plain_exact(dev, m, n, k, kind, mul_form):
                                                 mul_form=mul_form)
     for a, b, c, d in zip(got, want, want_cpu, again):
         assert _same(a.cpu(), c) and _same(a, d)
-        assert kind == "specials" or _same(a, b)
+        assert _same(a, b)
 
 
 @pytest.mark.parametrize("m,k,n,byte", [
@@ -289,16 +288,99 @@ def test_index_lut_gemm_kernel_vs_plain(dev, m, k, n, byte):
     assert torch.equal(unfused, fused_lut_gemm(x, s, wx, bounds, ab, wb, byte_packed=byte))
 
 
-@pytest.mark.parametrize("m,k,nb", [(72, 2048, 15), (72, 8192, 15), (7, 1001, 255)])
-def test_bucketize_kernel_vs_plain_exact(dev, m, k, nb):
+@pytest.mark.parametrize("m,k,nb,offset", [
+    (72, 2048, 15, 0), (72, 8192, 15, 0), (7, 1001, 255, 0),
+    (1024, 8192, 255, 0),  # A8 at prefill rows of d_ff
+    (3, 1001, 7, 0), (5, 7, 31, 0), (1, 3, 15, 0),  # numel % 4 != 0, shorter than a vector
+    (72, 2047, 15, 1), (9, 333, 200, 3), (4, 1026, 16, 2),  # views off x's 16-byte alignment
+    (8, 2048, 15, 21), (3, 50, 255, 30),  # off a 128-byte line by more than a vector
+])
+def test_bucketize_kernel_vs_plain_exact(dev, m, k, nb, offset):
+    """Both bodies (compare-sum to 15 boundaries, the search tree above),
+    the scalar head and tail, on boundaries (duplicates count twice), +-0,
+    subnormals, +-inf and NaN; ``offset`` puts x that many values into a
+    larger buffer."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.bucketize import bucketize_call, bucketize_plain
 
-    g = torch.Generator(device=dev).manual_seed(m + k)
-    x = torch.randn((m, k), generator=g, device=dev) * 2
-    x[0, :5] = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, float("nan")])
-    bounds = torch.sort(torch.randn(nb, generator=g, device=dev)).values
-    x[1, : nb] = bounds  # on the boundaries: x >= b counts them
-    assert torch.equal(bucketize_call(x, bounds), bucketize_plain(x, bounds))
+    g = torch.Generator(device=dev).manual_seed(m + k + nb)
+    x = (torch.randn(m * k + offset, generator=g, device=dev) * 2)[offset:].view(m, k)
+    bounds = torch.randn(nb, generator=g, device=dev)
+    bounds[nb // 3] = 0.0  # subnormals beside a 0 boundary: compared as numbers (no -ftz)
+    bounds = torch.sort(bounds).values
+    bounds[nb // 2:nb // 2 + 2] = bounds[nb // 2].clone()  # a duplicate boundary (nb >= 2)
+    flat = x.view(-1)
+    specials = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, float("nan"), -1e-45,
+                             1e-45], device=dev)
+    flat[:min(7, flat.numel())] = specials[:min(7, flat.numel())]
+    flat[-min(nb, flat.numel()):] = bounds[:min(nb, flat.numel())]  # on the boundaries
+    launches = build.LAUNCHES["bucketize"]
+    got = bucketize_call(x, bounds)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["bucketize"] == launches + 1
+    assert got.is_contiguous() and got.data_ptr() % 128 == x.data_ptr() % 128
+    assert torch.equal(got, bucketize_plain(x, bounds))
+    assert torch.equal(got.cpu(), bucketize_plain(x.cpu(), bounds.cpu()))
+
+
+@pytest.mark.parametrize("x_off,idx_off", [(0, 1), (1, 0), (3, 2)])
+def test_bucketize_kernel_scalar_path_when_offsets_differ(dev, x_off, idx_off):
+    """The entry point takes any idx: where x and idx sit at other offsets
+    modulo 16 bytes every value takes the scalar path, with the same ranks."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bucketize import NAME, bucketize_plain
+
+    g = torch.Generator(device=dev).manual_seed(x_off * 4 + idx_off)
+    x = (torch.randn(72 * 2047 + x_off, generator=g, device=dev) * 2)[x_off:].view(72, 2047)
+    x.view(-1)[:3] = torch.tensor([float("inf"), float("nan"), -0.0], device=dev)
+    for nb in (15, 255):
+        bounds = torch.sort(torch.randn(nb, generator=g, device=dev)).values
+        idx = torch.full((x.numel() + idx_off,), -1, dtype=torch.int32, device=dev)[idx_off:]
+        build.check(build.entry(NAME, "ppipqp")(x.data_ptr(), bounds.data_ptr(), nb,
+                                                 idx.data_ptr(), x.numel(),
+                                                 torch.cuda.current_stream().cuda_stream), NAME)
+        torch.cuda.synchronize()
+        assert torch.equal(idx.view(x.shape), bucketize_plain(x, bounds))
+
+
+@pytest.mark.parametrize("overrides,fallbacks,detect_fallbacks,topk", [
+    (dict(a_bits=5, detection="dynamic", kernel="pallas"), 1, 0, 1),
+    (dict(a_bits=8, detection="dynamic", kernel="auto"), 1, 0, 1),
+    (dict(a_bits=8, detection="static", kernel="auto", detect_kernel="pallas"), 1, 1, 0),
+    (dict(detection="static", kernel="jnp", detect_kernel="pallas"), 0, 1, 0),
+])
+def test_qlinear_demotions_run_on_the_card(dev, overrides, fallbacks, detect_fallbacks, topk):
+    """A5-A8 on a kernel route (``auto`` is the kernel route on the card)
+    and kernel detection under static thresholds demote to plain code on
+    CUDA tensors as JAX demotes them on its accelerator: counted, no plain
+    version of a kernel on a CUDA tensor, and dynamic detection still on the
+    top-k kernel. The output is the CPU's up to float32 summation order and
+    last-ulp scale differences, which can move an index on a boundary by one
+    codebook step: within 1e-2 relative L2 (a wrong route gives order 1)."""
+    import warnings
+
+    from repro_torch.core import kernel_routing as kr
+    from repro_torch.core.qlinear import QLinear, QLinearConfig, quantize_linear
+    from repro_torch.kernels import build
+
+    g = torch.Generator().manual_seed(5)
+    w, calib = torch.randn(256, 96, generator=g), torch.randn(128, 256, generator=g) * 1.5
+    mod = QLinear(quantize_linear(w, calib, QLinearConfig(outlier_frac=0.02, **overrides)))
+    x = torch.randn(6, 256, generator=g) * 2
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the demotions' own warnings
+        want = mod(x)
+        kr.reset()
+        build.reset_counts()
+        got = mod.to(dev)(x.to(dev))
+    torch.cuda.synchronize()
+    assert kr.fallback_count() == fallbacks
+    assert kr.detect_fallback_count() == detect_fallbacks
+    assert build.LAUNCHES["topk_outlier"] == topk
+    assert build.LAUNCHES["fused_lut_gemm"] == build.LAUNCHES["streaming_quantize_outlier"] == 0
+    assert not any(build.PLAIN_ON_CUDA.values())
+    rel = (torch.linalg.vector_norm(got.cpu() - want) / torch.linalg.vector_norm(want)).item()
+    assert rel <= 1e-2
 
 
 @pytest.mark.parametrize("kv_dtype", ["bfloat16", "float32"])

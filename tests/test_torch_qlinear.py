@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import repro.core.kernel_routing as jkr  # noqa: E402
 from repro.core.qlinear import QLinearConfig as JCfg  # noqa: E402
 from repro.core.qlinear import qlinear_apply as j_apply  # noqa: E402
 from repro.core.qlinear import quantize_linear, with_detect_route, with_kernel_route  # noqa: E402
@@ -155,24 +156,75 @@ def test_static_detection_with_pallas_detect_route_is_counted_fallback():
     assert kr.detect_fallback_count() == 1
 
 
+def _counts(routing) -> tuple:
+    """Every routing counter of a package (the JAX or the port's module)."""
+    return (dict(routing._DISPATCH), dict(routing._FALLBACKS), dict(routing._DETECT_DISPATCH),
+            dict(routing._DETECT_FALLBACKS), dict(routing._COMP_ROUTES))
+
+
+def _apply_both(p, xj, xt):
+    """(port output, JAX output), each package's counters reset first and
+    compared after; the demotions' one-time warnings are muted."""
+    jkr.reset()
+    kr.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got, want = qlinear_apply(to_port(p), xt), j_apply(p, xj)
+    assert _counts(kr) == _counts(jkr)
+    return got, want
+
+
 @pytest.mark.parametrize("overrides", [
     dict(a_bits=5, detection="dynamic", kernel="pallas"),
     dict(detection="static", detect_kernel="pallas", kernel="jnp"),
     dict(detection="static_dense", kernel="pallas", detect_kernel="pallas"),
 ])
 def test_unported_kernel_paths_raise_off_the_cpu(overrides):
-    """The demotions above happen on CPU tensors only: off the CPU (here a
-    meta tensor, on the card a CUDA tensor) a path that has no kernel
-    (a_bits > 4 on the fused route, kernel detection under static
-    thresholds) raises instead of running plain code, and counts nothing."""
-    p = to_port(_layer(JCfg(**overrides), seed=4))
-    kr.reset()
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        qlinear_apply(p, torch.empty(3, 128, device="meta"))
-    assert kr.fallback_count() == kr.detect_fallback_count() == 0
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)  # the demotion's own warning
-        qlinear_apply(p, torch.randn(3, 128))  # the same layer on the CPU runs
+    """Named for when the port refused these paths off the CPU. They have no
+    kernel in either package (a_bits > 4 on the fused route, kernel
+    detection under static thresholds), and the port now demotes them as JAX
+    does, on every device: no ``NotImplementedError``, the same dispatch,
+    fallback and compensation counts as JAX, and JAX's output. The card half
+    is ``tests/test_torch_gpu.py::test_qlinear_demotions_run_on_the_card``."""
+    p = _layer(JCfg(**overrides), seed=4)
+    xj, xt = _x(4, 3, 128, "float32")
+    got, want = _apply_both(p, xj, xt)
+    assert kr.fallback_count() + kr.detect_fallback_count() == 1
+    _compare(got, want, "float32")
+
+
+@pytest.mark.parametrize("detect_kernel", ["pallas", "jnp", "auto"])
+@pytest.mark.parametrize("kernel,use_kernel", [("pallas", False), ("auto", True),
+                                               ("auto", False), ("jnp", False)])
+@pytest.mark.parametrize("a_bits", [5, 8])
+def test_a5_a8_routes_count_and_compute_like_jax(a_bits, kernel, use_kernel, detect_kernel):
+    """A5-A8 activation codebooks on every GEMM and detection route: the
+    kernel routes (``pallas``, and ``auto`` where it resolves to the kernel)
+    demote to the plain GEMM, counted as one fallback per call, and
+    detection keeps its route (the detection-only top-k, not the streaming
+    kernel, which stops at A4); every counter and the output equal JAX's."""
+    cfg = JCfg(a_bits=a_bits, detection="dynamic", outlier_frac=0.01, kernel=kernel,
+               use_kernel=use_kernel, detect_kernel=detect_kernel)
+    p = _layer(cfg, seed=a_bits + 3)
+    xj, xt = _x(a_bits, 5, 128, "float32")
+    got, want = _apply_both(p, xj, xt)
+    assert kr.fallback_count() == (kernel == "pallas" or use_kernel)
+    assert kr.kernel_calls() == 0
+    _compare(got, want, "float32")
+
+
+@pytest.mark.parametrize("detection", ["static", "static_dense"])
+@pytest.mark.parametrize("detect_kernel", ["pallas", "auto", "jnp"])
+def test_static_detection_routes_count_like_jax(detection, detect_kernel):
+    """Static thresholds have no top-k to run: ``detect_kernel="pallas"`` is a
+    counted detection fallback, ``auto`` and ``jnp`` plain code, as in JAX."""
+    cfg = JCfg(detection=detection, detect_kernel=detect_kernel, kernel="jnp",
+               outlier_frac=0.01)
+    p = _layer(cfg, seed=len(detection))
+    xj, xt = _x(6, 4, 128, "float32")
+    got, want = _apply_both(p, xj, xt)
+    assert kr.detect_fallback_count() == (detect_kernel == "pallas")
+    _compare(got, want, "float32")
 
 
 def test_auto_routes_follow_the_tensor_device():
@@ -220,3 +272,47 @@ def test_qlinear_module_moves_and_applies():
     assert {n for n, _ in mod.named_buffers()} >= {"packed", "codebook", "scale",
                                                     "act_codebook", "bias"}
     assert mod.to("cpu").packed.device.type == "cpu"
+
+
+def _np_order_key(x: np.ndarray) -> np.ndarray:
+    """The Orizuru order key in numpy: sign-flipped bits, -0 onto +0, every NaN last."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.int64)
+    bits[bits == 0x80000000] = 0
+    key = np.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+    return np.where(np.isnan(x), 0xFFFFFFFF, key)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 40])
+def test_plain_detection_sorts_on_the_order_key(k):
+    """``stable_topk`` and the plain dual top-k equal a stable sort of the
+    order key (descending for hi), values read back from x: +-0 tie to the
+    lowest channel, NaN of either sign above +inf on the hi side and last on
+    the lo side. On the CPU ``torch.sort`` of the values gives the same
+    order; CUDA's orders NaN by their bits, which the key makes moot (the
+    card half: ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` phase 3)."""
+    from repro_torch.core.outlier import stable_topk
+    from repro_torch.kernels.topk_outlier import topk_outlier_plain
+
+    rng = np.random.RandomState(k)
+    neg_nan = np.array([0xFFC00001], np.uint32).view(np.float32)[0]
+    x = (rng.randint(-3, 4, (6, 40)) * 0.5).astype(np.float32)
+    for r in range(6):
+        for v in (np.nan, neg_nan, -0.0, 0.0, np.inf, -np.inf):
+            x[r, rng.randint(0, 40, rng.randint(0, 5))] = v
+    x[0] = -0.0
+    x[1] = neg_nan
+    key = _np_order_key(x)
+    hi = np.argsort(-key, axis=-1, kind="stable")[:, :k]
+    lo = np.argsort(key, axis=-1, kind="stable")[:, :k]
+    xt = torch.from_numpy(x)
+    hv, hi_t = stable_topk(xt, k, largest=True)
+    lv, lo_t = stable_topk(xt, k, largest=False)
+    got = topk_outlier_plain(xt, k)
+    for vals, idx, want in ((hv, hi_t, hi), (lv, lo_t, lo), (got[0], got[1], hi),
+                            (got[2], got[3], lo)):
+        assert np.array_equal(idx.numpy(), want)
+        # the values are x's own bits, a -0.0 stays -0.0 and a NaN keeps its sign
+        assert np.array_equal(vals.numpy().view(np.uint32),
+                              np.take_along_axis(x, want, -1).view(np.uint32))
+    assert np.array_equal(torch.sort(xt, dim=-1, descending=True, stable=True).indices[:, :k]
+                          .numpy(), hi)
