@@ -32,23 +32,29 @@ Phases, each printing one JSON line:
               (plain GEMM + streaming detection, bf16 KV), with a
               nibble-swapped control that must fail; path A with streaming
               and with plain detection must give equal logits on the card.
-5. serve   -- the full 16-layer llama3_2_1b, quantized by the port under the
-              W4A4 + W8 mlp/wd + int4 KV spec, serving 16 seeded requests;
-              every projection and attention of every step must have gone
-              through its kernel (launch and dispatch counts exact, no plain
-              route and no plain version on a CUDA tensor), then a profiled
-              extra run.
-5b. serve_a -- path A: the same weights on the plain GEMM route and the
-              default bf16 KV pool, the same requests and the same checks
-              with the streaming and float-page attention kernels.
+5. graph_step -- the full 16-layer llama3_2_1b, quantized by the port under
+              the W4A4 + W8 mlp/wd + int4 KV spec: its first three packed
+              steps as CUDA graph replays against eager steps, each on fresh
+              pools, logits and pools bit for bit.
+   serve   -- the same model serving 16 seeded requests, the packed step as
+              one CUDA graph (the default on the card), then the same
+              requests on an eager engine (``graph=False``): equal tokens,
+              and for each engine every projection and attention of every
+              step through its kernel (launch and dispatch counts exact, no
+              plain route and no plain version on a CUDA tensor), then a
+              profiled extra run of each.
+5b. graph_step_a, serve_a -- path A: the same weights on the plain GEMM
+              route and the default bf16 KV pool, the same steps, requests
+              and checks with the streaming and float-page attention kernels.
 6. quickstart -- ``repro_torch.examples.quickstart`` on the card; its own
               checks (the index LUT-GEMM within its float32 bound of the
               factorized form at the quickstart's shape), and the index
               LUT-GEMM and bucketize kernels launched.
 7. trained_parity -- the committed JAX-trained oasis_7b smoke artifact
-              served by the port on the fused route with the int4 pool:
-              first tokens equal JAX's, first packed step's logits within
-              0.1 rel L2 of JAX's, every kernel launched, no plain route.
+              served by the port on the fused route with the int4 pool, the
+              packed step as a CUDA graph: first tokens equal JAX's, first
+              packed step's logits within 0.1 rel L2 of JAX's, every kernel
+              launched, no plain route.
 8. demotion -- A5/A8 activations on the kernel GEMM routes and kernel
               detection under static thresholds run on CUDA tensors as
               counted fallbacks, as JAX demotes them.
@@ -860,14 +866,14 @@ def serve_prompts(vocab: int) -> list[list[int]]:
     return prompts
 
 
-def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_line,
-              extra: dict) -> tuple[bool, dict]:
-    """Serve ``serve_prompts`` x 64 new tokens on 8 slots with every count
-    set to 0 first. Passes when each kernel launched exactly ``per_step[k]``
-    times per layer and packed step (every other kernel never), each
-    dispatch route was taken exactly ``routes[r]`` times per layer and step
-    (no fallback), no plain version ran on a CUDA tensor and every request
-    got 64 in-vocabulary tokens. Then a profiled extra run."""
+def serve_once(model, params, sc, prompts, per_step: dict, routes: dict, graph: bool):
+    """Serve ``prompts`` x 64 new tokens on 8 slots, the packed step as a CUDA
+    graph or eager, with every count set to 0 first. Returns the engine, its
+    outputs and one result dict; ``ok`` when each kernel launched exactly
+    ``per_step[k]`` times per layer and packed step (every other kernel
+    never), each dispatch route was taken exactly ``routes[r]`` times per
+    layer and step (no fallback), no plain version ran on a CUDA tensor and
+    every request got 64 in-vocabulary tokens."""
     import torch
 
     import repro_torch.core.kernel_routing as kr
@@ -875,8 +881,7 @@ def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_l
     from repro_torch.serving.engine import ServingEngine
 
     cfg = model.cfg
-    prompts = serve_prompts(cfg.vocab_size)
-    engine = ServingEngine(model, params, sc, batch_slots=8)
+    engine = ServingEngine(model, params, sc, batch_slots=8, graph=graph)
     kb.reset_counts()
     kr.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -896,21 +901,75 @@ def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_l
     expected_dispatch = {r: routes.get(r, 0) * cfg.n_layers * steps for r in dispatch}
     plain = dict(kb.PLAIN_ON_CUDA)
     n_tok = sum(len(o) for o in outs)
+    capture = st["graph_capture_s"]
     ok = (len(outs) == 16 and all(len(o) == 64 for o in outs)
           and all(0 <= t < cfg.vocab_size for o in outs for t in o)
           and launches == expected and dispatch == expected_dispatch
-          and not any(plain.values()))
-    emit(phase, arch=cfg.arch_id, layers=cfg.n_layers, requests=len(outs),
-         prompt_tokens=sum(len(p) for p in prompts), generated_tokens=n_tok,
-         wall_s=wall, tokens_per_s=n_tok / wall, ms_per_step=wall / steps * 1e3,
-         packed_steps=steps, preemptions=st["preemptions"],
-         prefix_hits=st["prefix_hits"], prefix_hit_tokens=st["prefix_hit_tokens"],
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
-         expected_launches=expected, dispatch=dispatch, expected_dispatch=expected_dispatch,
-         plain_on_cuda=plain, card=smi_line, ok=ok, **extra)
-    phase_profile(f"{phase}_profile", engine, cfg.vocab_size)
-    return ok, launches
+          and not any(plain.values()) and (capture is not None) == graph)
+    res = dict(graph=graph, wall_s=wall, tokens_per_s=n_tok / wall,
+               ms_per_step=wall / steps * 1e3, capture_s=capture,
+               ms_per_step_after_capture=(wall - (capture or 0.0)) / steps * 1e3,
+               generated_tokens=n_tok, packed_steps=steps, preemptions=st["preemptions"],
+               prefix_hits=st["prefix_hits"], prefix_hit_tokens=st["prefix_hit_tokens"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               expected_launches=expected, dispatch=dispatch,
+               expected_dispatch=expected_dispatch, plain_on_cuda=plain, ok=ok)
+    return engine, outs, res
+
+
+def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_line,
+              extra: dict) -> tuple[bool, dict]:
+    """The graph engine (the default on the card) serves ``serve_prompts``,
+    then, in the same call, an eager engine (``graph=False``) serves them on
+    the same weights; each is profiled on a short extra run (``_profile``
+    lines) before the next starts. Passes when both pass ``serve_once`` and
+    their tokens are equal. Returns the graph run's launches."""
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    runs, tokens = {}, {}
+    for graph in (True, False):
+        name = "graph" if graph else "eager"
+        engine, tokens[name], runs[name] = serve_once(model, params, sc, prompts, per_step,
+                                                      routes, graph)
+        phase_profile(f"{phase}_profile", engine, cfg.vocab_size, name)
+        del engine
+    equal = tokens["graph"] == tokens["eager"]
+    ok = equal and runs["graph"]["ok"] and runs["eager"]["ok"]
+    emit(phase, arch=cfg.arch_id, layers=cfg.n_layers, requests=len(prompts),
+         prompt_tokens=sum(len(p) for p in prompts), tokens_equal=equal,
+         graph_speedup=runs["eager"]["ms_per_step"] / runs["graph"]["ms_per_step"],
+         card=smi_line, ok=ok, **runs, **extra)
+    return ok, runs["graph"]["launches"]
+
+
+def phase_graph_step(phase: str, model, params, sc, n_steps: int = 3) -> bool:
+    """The serve phase's first ``n_steps`` packed steps (prefill, then decode
+    rows beside prefill) by graph replay against eager steps, each scheduler
+    on fresh pools: every step's logits and, after them, every pool tensor
+    bit for bit (the same kernels, on the same inputs, in the same order)."""
+    import torch
+
+    from repro_torch.serving.scheduler import Scheduler
+
+    got = {}
+    for graph in (True, False):
+        sched = Scheduler(model, params, sc, slots=8, graph=graph)
+        for p in serve_prompts(model.cfg.vocab_size):
+            sched.submit(p, 64)
+        logits, results = [], {}
+        for _ in range(n_steps):
+            sched.step(results)
+            logits.append(sched.last_logits.clone())
+        got[graph] = (logits, sched.pools, sched.counters["decode_steps"])
+    logits_equal = [torch.equal(a, b) for a, b in zip(got[True][0], got[False][0])]
+    pools_equal = all(torch.equal(a[k], b[k]) for a, b in zip(got[True][1], got[False][1])
+                      for k in a)
+    finite = all(bool(torch.isfinite(x).all()) for x in got[True][0])
+    ok = all(logits_equal) and pools_equal and finite and got[True][2] > 0
+    emit(phase, steps=n_steps, decode_steps=got[True][2], logits_equal=logits_equal,
+         pools_equal=pools_equal, finite=finite, ok=ok)
+    return ok
 
 
 def phase_serve(dev, smi_line):
@@ -929,12 +988,13 @@ def phase_serve(dev, smi_line):
     torch.cuda.synchronize()
     ptq_s = time.perf_counter() - t0
     sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
+    step_ok = phase_graph_step("graph_step", model, qp, sc)
     # every step runs every layer: 6 projections (each one LUT-GEMM and one
     # top-k) and one attention per layer, all on their kernels
     ok, launches = serve_run(
         "serve", model, qp, sc, {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1},
         {"gemm_kernel": 6, "detect_kernel": 6}, smi_line, dict(ptq_s=ptq_s))
-    return ok, launches, model, qp
+    return ok, step_ok, launches, model, qp
 
 
 def phase_serve_a(model, qp, smi_line):
@@ -948,11 +1008,13 @@ def phase_serve_a(model, qp, smi_line):
     qa = with_kernel_route(qp, "jnp")
     sc = ServeConfig.from_spec(path_a_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
     assert not sc.kv_quant and sc.cache_dtype == "bfloat16"
+    step_ok = phase_graph_step("graph_step_a", model, qa, sc)
     # 6 projections per layer: one plain GEMM and one streaming quantize +
     # detect launch each; one float-page attention per layer
-    return serve_run("serve_a", model, qa, sc,
-                     {"streaming_quantize_outlier": 6, "paged_attn_bf16": 1},
-                     {"gemm_plain": 6, "detect_kernel": 6}, smi_line, {})
+    ok, launches = serve_run("serve_a", model, qa, sc,
+                             {"streaming_quantize_outlier": 6, "paged_attn_bf16": 1},
+                             {"gemm_plain": 6, "detect_kernel": 6}, smi_line, {})
+    return ok, step_ok, launches
 
 
 def phase_quickstart(dev) -> tuple[bool, dict, float]:
@@ -1035,10 +1097,11 @@ def phase_trained_parity(dev) -> bool:
     ref = torch.from_numpy(exp["first_step_logits"])[:, 0][valid]
     rel = (torch.linalg.vector_norm(on_card - ref) / torch.linalg.vector_norm(ref)).item()
     agree = (on_card.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    capture = engine.stats["graph_capture_s"]
     ok = (launches == expected and not any(plain.values()) and fallbacks == 0
-          and bool(torch.isfinite(on_card).all()) and rel < 0.1
+          and bool(torch.isfinite(on_card).all()) and rel < 0.1 and capture is not None
           and all(g[0] == w[0] for g, w in zip(got, want)))
-    emit("trained_parity", arch=art.model.cfg.arch_id, layers=layers,
+    emit("trained_parity", arch=art.model.cfg.arch_id, layers=layers, graph_capture_s=capture,
          d_model=art.model.cfg.d_model, prompts=list(map(str, exp["prompts"])),
          new_tokens=len(want[0]), common_prefix=prefix, tokens_equal=got == want,
          first_token_equal=[g[0] == w[0] for g, w in zip(got, want)],
@@ -1097,9 +1160,11 @@ def phase_demotions(dev) -> bool:
     return ok_all
 
 
-def phase_profile(phase: str, engine, vocab: int) -> None:
+def phase_profile(phase: str, engine, vocab: int, label: str) -> None:
     """Where a serving step's time goes: ``torch.profiler`` over a short
-    extra run (4 requests, 8 new tokens) on a serve phase's engine."""
+    extra run (4 requests, 8 new tokens) on a serve phase's engine. For the
+    graph engine, ``kernels_seen`` says whether the profiler saw the kernels
+    that graph replays launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1119,8 +1184,11 @@ def phase_profile(phase: str, engine, vocab: int) -> None:
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     attn = [(us, c) for us, k, c in rows if "paged_attn" in k]
-    emit(phase, wall_s=wall, packed_steps=steps, ms_per_step=wall / steps * 1e3,
-         device_busy_s=busy_s, device_busy_share=busy_s / wall if rows else None,
+    emit(phase, engine=label, wall_s=wall, packed_steps=steps,
+         ms_per_step=wall / steps * 1e3, device_busy_s=busy_s,
+         device_ms_per_step=busy_s * 1e3 / steps,
+         device_busy_share=busy_s / wall if rows else None,
+         kernels_seen=bool(attn),
          attention_device_ms_per_step=sum(us for us, _ in attn) / 1e3 / steps,
          attention_calls=sum(c for _, c in attn),
          top=[{"op": k, "device_ms": us / 1e3, "calls": c} for us, k, c in rows[:12]])
@@ -1155,12 +1223,16 @@ def main() -> int:
         failures += [f"{name_k}: {c['case']}" for c in cases if not c["ok"]]
     if not phase_model(dev):
         failures.append("model check")
-    ok, launches, model, qp = phase_serve(dev, smi_line)
+    ok, step_ok, launches, model, qp = phase_serve(dev, smi_line)
     if not ok:
         failures.append("serve")
-    ok, launches_a = phase_serve_a(model, qp, smi_line)
+    if not step_ok:
+        failures.append("graph step")
+    ok, step_ok, launches_a = phase_serve_a(model, qp, smi_line)
     if not ok:
         failures.append("serve path A")
+    if not step_ok:
+        failures.append("graph step path A")
     del model, qp
     ok, launches_qs, qs_err = phase_quickstart(dev)
     if not ok:

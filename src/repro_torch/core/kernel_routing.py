@@ -7,17 +7,32 @@ Artifacts store the JAX route names, and the port reads them so:
   jnp    : the plain PyTorch route (``core/lut_gemm.py``, stable-sort top-k)
   auto   : the kernel for CUDA tensors, the plain route for CPU tensors
 
-PyTorch runs eagerly, so every counter here counts calls, not traces.
+As in JAX, an environment variable changes what ``auto`` means:
+``REPRO_LUT_KERNEL`` for the GEMM, ``REPRO_TOPK_KERNEL`` for dynamic
+detection, ``REPRO_PAGED_KERNEL`` for paged attention. Unset, ``""`` or
+``auto`` keeps the default; ``0``, ``off`` or ``false`` takes the plain route
+on every device; anything else the kernel route (whose wrapper still runs
+the plain version on a CPU tensor). Each variable is read once, at its
+first use; :func:`reset_env` forgets the readings. A call that an override
+sends to the plain route on a CUDA tensor is counted under the variable's
+name in ``kernels.build.PLAIN_ON_CUDA``: the user asked for it, and it shows.
+
+Every counter here counts calls, not traces. A captured CUDA graph replays
+without Python, so the graph step adds what one captured run counted once
+per replay (``serving/graph_step.py``); ``COUNTERS`` lists them for it.
 Fallbacks off a requested kernel route are counted and warned once per
 reason, never silent.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from collections import Counter
 
 import torch
+
+from repro_torch.kernels import build
 
 __all__ = [
     "ROUTES",
@@ -36,6 +51,9 @@ __all__ = [
     "detect_fallback_count",
     "comp_route_counts",
     "reset",
+    "resolve_paged_route",
+    "reset_env",
+    "COUNTERS",
 ]
 
 ROUTES = ("auto", "pallas", "jnp")
@@ -46,10 +64,31 @@ _WARNED: set[str] = set()
 _DETECT_DISPATCH: Counter = Counter()
 _DETECT_FALLBACKS: Counter = Counter()
 _COMP_ROUTES: Counter = Counter()
+COUNTERS = (_DISPATCH, _FALLBACKS, _DETECT_DISPATCH, _DETECT_FALLBACKS, _COMP_ROUTES)
+_ENV_READ: dict[str, bool | None] = {}
 
 
-def _auto(device: torch.device) -> str:
-    return "pallas" if device.type == "cuda" else "jnp"
+def _env_override(var: str) -> bool | None:
+    """The first reading of ``var``: None keeps the default, True forces the
+    kernel route, False the plain route (JAX's spelling)."""
+    if var not in _ENV_READ:
+        env = os.environ.get(var, "auto").strip().lower()
+        _ENV_READ[var] = None if env in ("", "auto") else env not in ("0", "off", "false")
+    return _ENV_READ[var]
+
+
+def reset_env() -> None:
+    """Forget the readings of the route variables (the next use reads again)."""
+    _ENV_READ.clear()
+
+
+def _auto(device: torch.device, var: str) -> str:
+    forced = _env_override(var)
+    if forced is None:
+        return "pallas" if device.type == "cuda" else "jnp"
+    if not forced and device.type == "cuda":
+        build.PLAIN_ON_CUDA[var] += 1
+    return "pallas" if forced else "jnp"
 
 
 def resolve_route(kernel: str, use_kernel: bool = False,
@@ -61,7 +100,7 @@ def resolve_route(kernel: str, use_kernel: bool = False,
         raise ValueError(f"kernel must be one of {ROUTES}, got {kernel!r}")
     if use_kernel:
         return "pallas"
-    return _auto(torch.device(device))
+    return _auto(torch.device(device), "REPRO_LUT_KERNEL")
 
 
 def resolve_detect_route(detect_kernel: str, device: torch.device | str = "cpu") -> str:
@@ -70,7 +109,12 @@ def resolve_detect_route(detect_kernel: str, device: torch.device | str = "cpu")
         return detect_kernel
     if detect_kernel != "auto":
         raise ValueError(f"detect_kernel must be one of {ROUTES}, got {detect_kernel!r}")
-    return _auto(torch.device(device))
+    return _auto(torch.device(device), "REPRO_TOPK_KERNEL")
+
+
+def resolve_paged_route(device: torch.device | str = "cpu") -> str:
+    """Paged attention's route: ``auto`` under ``REPRO_PAGED_KERNEL``."""
+    return _auto(torch.device(device), "REPRO_PAGED_KERNEL")
 
 
 def record_dispatch(tier: str, route: str) -> None:

@@ -13,8 +13,11 @@ and ``restype`` are set on first use and the bound function is cached.
 Launch accounting lives here too: ``LAUNCHES[name]`` counts the times a
 wrapper launched its kernel, ``PLAIN_ON_CUDA[name]`` the times a plain
 version ran on a CUDA tensor (a run that should have gone through the
-kernel, or a deliberate comparison). So do the launch helpers the split
-kernels share: ``SMS`` and the zeroed ``tickets`` of a stream.
+kernel, a deliberate comparison, or a route an environment variable forced;
+``core/kernel_routing.py``). Both count Python calls: a captured CUDA graph
+adds one captured run's counts per replay (``serving/graph_step.py``). So
+do the launch helpers the split kernels share: ``SMS`` and the zeroed
+``tickets`` of a stream.
 """
 
 from __future__ import annotations
@@ -31,13 +34,14 @@ from collections.abc import Callable
 
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "SMS", "reset_counts", "build_all",
-           "entry", "build_dir", "check", "tickets"]
+__all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "COUNTERS", "SMS", "reset_counts",
+           "build_all", "entry", "build_dir", "check", "tickets"]
 
 KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4", "paged_attn_bf16",
            "streaming_quantize_outlier", "lut_gemm", "bucketize")
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
+COUNTERS = (LAUNCHES, PLAIN_ON_CUDA)
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -133,10 +137,15 @@ def check(err: int, name: str) -> None:
 def tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters for one stream: the split kernels
     count their finished blocks here, and the last block resets its counter.
-    Kernels on one stream run in turn, so they share the buffer."""
+    Kernels on one stream run in turn, so they share the buffer. A stream
+    being captured must have its buffer already (a warm-up run on it): one
+    made inside a capture would live in that graph's private memory pool."""
     key = (device.index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the split kernels' tickets of a stream must exist before "
+                               "it is captured: run the step on that stream first")
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _TICKETS[key] = t
     return t

@@ -6,9 +6,12 @@ Attention is ported on two branches: no cache (training / full-sequence
 logits) and the paged KV pool of the serving scheduler -- int4 K-Means or
 float (bfloat16 / float32) pages -- where ``_paged_write`` stores this call's
 keys and values and ``_paged_attend`` runs the pool's paged-attention kernel
-wrapper. The pools are updated in place (``index_copy_``): PyTorch tensors
-are mutable, and a functional copy of a full-width pool per layer per step
-would double its memory traffic.
+wrapper (or its plain version under ``REPRO_PAGED_KERNEL=0``). The pools are
+updated in place (``index_copy_``): PyTorch tensors are mutable, and a
+functional copy of a full-width pool per layer per step would double its
+memory traffic. Nothing on the paged branch reads a tensor on the host or
+copies one from it, so the serving scheduler can capture the whole packed
+step as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import kernel_routing as kr
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.quantize import pack_int4
-from repro_torch.kernels.paged_attn import paged_attn_bf16, paged_attn_int4
+from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
+                                            paged_attn_plain, paged_attn_quant_plain)
 
 __all__ = [
     "Dense",
@@ -73,7 +78,9 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     hd = x.shape[-1]
     half = hd // 2
     exps = -torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    # theta filled on the device: a host tensor here would be copied to the
+    # card on every call, which a captured step does not allow
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exps)
     ang = positions.float()[..., None] * freq
     ang = ang.reshape(*positions.shape, *([1] * (x.ndim - 3)), half)
     sin, cos = torch.sin(ang), torch.cos(ang)
@@ -120,24 +127,43 @@ def init_paged_kv_cache(cfg, n_blocks: int, block_size: int, dtype=torch.bfloat1
                         device: torch.device | str = "cpu") -> dict:
     """One layer's slice of the global block pool: ``pages_k`` / ``pages_v``
     (n_blocks, block_size, KV, hd) in ``dtype`` (a torch dtype or its name),
-    or with ``quantized`` int4 K-Means blocks with per-(token, head) scales."""
+    or with ``quantized`` int4 K-Means blocks with per-(token, head) scales.
+
+    Each page array is the first ``n_blocks`` blocks of a storage of
+    ``n_blocks + 1``: the block after them is the scratch block where
+    ``_paged_write`` sends the cells it must not store. No table entry can
+    name it, so it never aliases a real block."""
     kv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def pages(last: int, dt) -> torch.Tensor:
+        store = torch.zeros((n_blocks + 1, block_size, kv, last), dtype=dt, device=device)
+        return store[:n_blocks]
+
     if not quantized:
         dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-        shape = (n_blocks, block_size, kv, hd)
-        return {"pages_k": torch.zeros(shape, dtype=dt, device=device),
-                "pages_v": torch.zeros(shape, dtype=dt, device=device)}
+        return {"pages_k": pages(hd, dt), "pages_v": pages(hd, dt)}
     from repro_torch.models.model import _default_codebook
 
-    u8 = dict(dtype=torch.uint8, device=device)
-    f32 = dict(dtype=torch.float32, device=device)
     return {
-        "pages_k_idx": torch.zeros((n_blocks, block_size, kv, hd // 2), **u8),
-        "pages_v_idx": torch.zeros((n_blocks, block_size, kv, hd // 2), **u8),
-        "pages_k_scale": torch.zeros((n_blocks, block_size, kv, 1), **f32),
-        "pages_v_scale": torch.zeros((n_blocks, block_size, kv, 1), **f32),
+        "pages_k_idx": pages(hd // 2, torch.uint8),
+        "pages_v_idx": pages(hd // 2, torch.uint8),
+        "pages_k_scale": pages(1, torch.float32),
+        "pages_v_scale": pages(1, torch.float32),
         "kv_codebook": _default_codebook(4, device=device),
     }
+
+
+def _cells_with_scratch(pool: torch.Tensor) -> torch.Tensor:
+    """``pool`` (n_blocks, bs, ...) as ``(n_blocks + 1) * bs`` cells: its own
+    cells, then the scratch block's, which lies past the pages in their
+    storage (``init_paged_kv_cache``)."""
+    n_blocks, bs = pool.shape[:2]
+    cell = math.prod(pool.shape[2:])
+    held = pool.untyped_storage().nbytes() // pool.element_size() - pool.storage_offset()
+    if not pool.is_contiguous() or held < (n_blocks + 1) * bs * cell:
+        raise ValueError("a paged pool needs the scratch block after its pages: "
+                         "make it with init_paged_kv_cache")
+    return pool.as_strided(((n_blocks + 1) * bs, *pool.shape[2:]), pool.stride()[1:])
 
 
 def _kv_quantize(x: torch.Tensor, codebook: torch.Tensor):
@@ -152,8 +178,11 @@ def _paged_write(cache: dict, k, v, positions, ctx_lens) -> dict:
     """Store this call's tokens in their pool slots, in place.
 
     A token is written iff ``0 <= position < ctx_lens[b]`` and its table
-    entry is allocated; the others (padding, idle rows) are filtered out
-    before the copy, as JAX drops them with an out-of-bounds index."""
+    entry is allocated. The others (padding, idle rows) go to the pool's
+    scratch block, as JAX sends them to an out-of-bounds index and drops
+    them: every cell is written by one ``index_copy_`` of a fixed shape, and
+    no mask decides a shape on the host. Many dropped cells may land on the
+    same scratch cell in any order; nothing ever reads it."""
     quantized = "pages_k_idx" in cache
     pages = cache["pages_k_idx"] if quantized else cache["pages_k"]
     n_blocks, bs = pages.shape[0], pages.shape[1]
@@ -161,7 +190,7 @@ def _paged_write(cache: dict, k, v, positions, ctx_lens) -> dict:
     blk = torch.clamp(positions // bs, 0, bt.shape[1] - 1).long()
     block_id = torch.gather(bt, 1, blk)
     valid = (positions >= 0) & (positions < ctx_lens[:, None]) & (block_id >= 0)
-    dest = (block_id.long() * bs + positions % bs)[valid]
+    dest = torch.where(valid, block_id.long() * bs + positions % bs, n_blocks * bs).reshape(-1)
     if quantized:
         ki, ks = _kv_quantize(k, cache["kv_codebook"])
         vi, vs = _kv_quantize(v, cache["kv_codebook"])
@@ -170,9 +199,7 @@ def _paged_write(cache: dict, k, v, positions, ctx_lens) -> dict:
     else:
         writes = (("pages_k", k.to(pages.dtype)), ("pages_v", v.to(pages.dtype)))
     for key, vals in writes:
-        pool = cache[key]
-        flat = pool.view(n_blocks * bs, *pool.shape[2:])
-        flat.index_copy_(0, dest, vals[valid])
+        _cells_with_scratch(cache[key]).index_copy_(0, dest, vals.reshape(-1, *vals.shape[2:]))
     return cache
 
 
@@ -180,13 +207,16 @@ def _paged_attend(cache: dict, q, q_pos, softcap: float, window: int = 0) -> tor
     """Attention against the block pool through the block table."""
     qf, qp = q.float().contiguous(), q_pos.int().contiguous()
     bt = cache["block_tables"].contiguous()
+    kernel = kr.resolve_paged_route(q.device) == "pallas"
     if "pages_k_idx" in cache:
-        o = paged_attn_int4(qf, cache["pages_k_idx"], cache["pages_k_scale"],
-                            cache["pages_v_idx"], cache["pages_v_scale"], cache["kv_codebook"],
-                            bt, cache["ctx_lens"], qp, softcap=softcap, window=window)
+        attend = paged_attn_int4 if kernel else paged_attn_quant_plain
+        o = attend(qf, cache["pages_k_idx"], cache["pages_k_scale"], cache["pages_v_idx"],
+                   cache["pages_v_scale"], cache["kv_codebook"], bt, cache["ctx_lens"], qp,
+                   softcap=softcap, window=window)
     else:
-        o = paged_attn_bf16(qf, cache["pages_k"], cache["pages_v"], bt, cache["ctx_lens"], qp,
-                            softcap=softcap, window=window)
+        attend = paged_attn_bf16 if kernel else paged_attn_plain
+        o = attend(qf, cache["pages_k"], cache["pages_v"], bt, cache["ctx_lens"], qp,
+                   softcap=softcap, window=window)
     return o.to(q.dtype)
 
 

@@ -191,11 +191,13 @@ class BlockAllocator:
 
 def copy_blocks(pools: list[dict], src, dst) -> list[dict]:
     """Copy-on-write primitive: pool rows ``src[i]`` overwrite rows ``dst[i]``
-    in every layer's ``pages_*`` arrays, in place."""
+    in every layer's ``pages_*`` arrays, in place (the tensors stay the same,
+    so a captured step's addresses stay valid). The two index tensors are
+    made once per call."""
+    dev = next(v.device for k, v in pools[0].items() if k.startswith("pages_"))
+    s = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
+    t = torch.as_tensor(np.asarray(dst), dtype=torch.long, device=dev)
     for layer in pools:
-        dev = next(v.device for k, v in layer.items() if k.startswith("pages_"))
-        s = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
-        t = torch.as_tensor(np.asarray(dst), dtype=torch.long, device=dev)
         for k, v in layer.items():
             if k.startswith("pages_"):
                 v.index_copy_(0, t, v[s])

@@ -16,10 +16,21 @@ reserves the blocks of the whole context plus the first decode token.
 With ``prefix_cache`` on, full prompt blocks are registered under their
 chain hash; an admission aliases the longest cached prefix and skips its
 prefill, and a write into a shared block first copies it (copy-on-write).
-Sampling is greedy, host-side, from the step's logits.
+
+On CUDA the packed step is one captured CUDA graph (``graph_step.py``), as
+JAX runs it as one jitted program: the host assembles the step's five
+inputs in pinned arrays, copies them into the graph's static device
+buffers and replays it. ``graph=False`` runs the same step eagerly, as
+``jax.disable_jit()`` would; the CPU always runs it eagerly.
+
+Sampling runs on the step's logits outside the step, as in JAX: greedy
+(``temperature == 0``) is one argmax over the whole step; otherwise each
+request draws Gumbel noise from its own generator, seeded from
+``(seed, salt or rid)``, so its tokens do not depend on how steps were
+packed.
 
 Not ported yet: speculative decoding, sliding-window and recurrent cache
-policies, telemetry and quality probes, temperature sampling.
+policies, telemetry and quality probes.
 """
 
 from __future__ import annotations
@@ -28,10 +39,10 @@ import dataclasses
 import enum
 from collections import deque
 
-import numpy as np
 import torch
 
 from repro_torch.core import kernel_routing as kr
+from repro_torch.serving.graph_step import GraphStep
 from repro_torch.serving.paged_cache import (
     BlockAllocator,
     PagedCacheConfig,
@@ -70,6 +81,7 @@ class Request:
     blocks: list[int] = dataclasses.field(default_factory=list)
     block_hashes: list[bytes] = dataclasses.field(default_factory=list)
     slot: int = -1
+    gen: torch.Generator | None = None  # sampling noise (temperature > 0)
 
     @property
     def decoding(self) -> bool:
@@ -96,11 +108,13 @@ class Scheduler:
     (0 -> slots * blocks per request), ``token_budget`` sizes the grid
     (0 -> slots + prefill_chunk), ``seg_width`` packs that many tokens per
     segment row, ``prefix_cache`` turns on prefix sharing.
+
+    ``graph``: None captures the packed step as a CUDA graph on CUDA and runs
+    it eagerly on the CPU; False runs it eagerly; True demands the graph
+    (and raises on the CPU).
     """
 
-    def __init__(self, model, params, sc, slots: int = 8):
-        if sc.temperature > 0:
-            raise NotImplementedError("temperature sampling is not ported yet; serve greedy")
+    def __init__(self, model, params, sc, slots: int = 8, graph: bool | None = None):
         policies = model.cache_policies()
         if not all(p.kind == "paged_kv" for p in policies):
             raise NotImplementedError("only paged_kv cache policies are ported")
@@ -136,6 +150,24 @@ class Scheduler:
         self.counters = dict.fromkeys(_COUNTERS, 0)
         self.peak_occupancy = 0.0
         self._packed_fn = make_packed_fn(model)
+        if graph is None:
+            graph = self.device.type == "cuda"
+        elif graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph step needs the card; params are on {self.device}")
+        # the step's inputs: host arrays the packing fills (pinned on the card)
+        # and the device tensors the step reads, the same tensors every step
+        shapes = ((slots, max_blk), (rows,), (rows, self.seg_width), (rows,),
+                  (rows, self.seg_width))
+        cuda = self.device.type == "cuda"
+        self._host = [torch.empty(s, dtype=torch.int32, pin_memory=cuda) for s in shapes]
+        self._inputs = (tuple(torch.empty(s, dtype=torch.int32, device=self.device)
+                              for s in shapes) if cuda else tuple(self._host))
+        # recorded after each step's copies: the next packing must not
+        # overwrite the pinned arrays while a copy from them is queued
+        self._copied = torch.cuda.Event() if cuda else None
+        self.graph = (GraphStep(self._packed_fn, params, self.pools, self._inputs)
+                      if graph else None)
+        self.last_logits: torch.Tensor | None = None  # (rows, S, vocab) of the last step
 
     @property
     def stats(self) -> dict:
@@ -146,6 +178,7 @@ class Scheduler:
         d["lut_fallbacks"] = kr.fallback_count()
         d["outlier_kernel_calls"] = kr.detect_kernel_calls()
         d["outlier_jnp_calls"] = kr.detect_jnp_calls()
+        d["graph_capture_s"] = None if self.graph is None else self.graph.capture_s
         return d
 
     def _count(self, key: str, n: int = 1) -> None:
@@ -155,7 +188,12 @@ class Scheduler:
         self.peak_occupancy = max(self.peak_occupancy, self.allocator.occupancy)
 
     # ----------------------------------------------------------------- host
-    def submit(self, prompt: list[int], max_new_tokens: int, eos_id: int | None = None) -> int:
+    def submit(self, prompt: list[int], max_new_tokens: int, eos_id: int | None = None,
+               seed: int = 0, salt: int | None = None) -> int:
+        """Queue a request. With ``temperature > 0`` its noise comes from a
+        generator seeded ``seed * 100_003 + (salt or rid)``, JAX's key: the
+        engine passes each prompt's index as ``salt``, so a (seed, prompt
+        list) samples alike across ``generate`` calls."""
         if not prompt:
             raise ValueError("empty prompt (nothing to prefill)")
         if len(prompt) + max_new_tokens > self.pcfg.max_context:
@@ -163,8 +201,12 @@ class Scheduler:
                              f"cache_len {self.pcfg.max_context}")
         rid = self._next_rid
         self._next_rid += 1
+        gen = None
+        if self.sc.temperature > 0:
+            key = seed * 100_003 + (rid if salt is None else salt)
+            gen = torch.Generator(device=self.device).manual_seed(key)
         self._queue.append(Request(rid=rid, prompt=list(prompt), max_new_tokens=max_new_tokens,
-                                   eos_id=eos_id, context=list(prompt)))
+                                   eos_id=eos_id, context=list(prompt), gen=gen))
         return rid
 
     def run(self) -> dict[int, list[int]]:
@@ -261,10 +303,13 @@ class Scheduler:
             if self._cow_pass(decoders, segments):
                 break
 
-        bt = np.full((self.slots, self.pcfg.max_blocks_per_seq), -1, np.int32)
-        slot_ids = np.zeros((self.rows,), np.int32)
-        pos = np.full((self.rows, S), -1, np.int32)
-        tok = np.zeros((self.rows, S), np.int32)
+        if self._copied is not None:
+            self._copied.synchronize()
+        bt, slot_ids, pos, ctx, tok = (h.numpy() for h in self._host)
+        bt.fill(-1)
+        slot_ids.fill(0)
+        pos.fill(-1)
+        tok.fill(0)
         for r in self._running:
             bt[r.slot, : len(r.blocks)] = r.blocks
         row = 0
@@ -287,14 +332,13 @@ class Scheduler:
         for r, start, n in segments:
             last_cell[r.rid] = fill(r.context[start : start + n], start, r.slot)[-1]
             n_prefill += n
-        ctx = pos.max(axis=1) + 1
+        ctx[:] = pos.max(axis=1) + 1
 
-        dev = self.device
-        self.pools, logits = self._packed_fn(
-            self.params, self.pools, torch.from_numpy(bt).to(dev),
-            torch.from_numpy(slot_ids).to(dev), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(ctx).to(dev), torch.from_numpy(tok).to(dev))
-        am = logits.argmax(dim=-1).cpu().numpy()  # greedy: first maximal index
+        logits = self._run_step()
+        sampled = [(r, first_cell[r.rid]) for r in decoders]
+        sampled += [(r, last_cell[r.rid]) for r, start, n in segments
+                    if start + n >= len(r.context) and r.next_token is None]
+        picks = dict(zip((r.rid for r, _ in sampled), self._sample(logits, sampled)))
 
         self._count("packed_steps")
         self._count("packed_tokens", int((pos >= 0).sum()))
@@ -306,22 +350,57 @@ class Scheduler:
             self._count("mixed_steps")
 
         for r in decoders:
-            rw, cc = first_cell[r.rid]
             r.context.append(r.next_token)
             r.prefilled += 1
-            r.next_token = int(am[rw, cc])
+            r.next_token = picks[r.rid]
             r.generated.append(r.next_token)
             self._count("decode_slot_tokens")
         for r, start, n in segments:
             r.prefilled = start + n
             if r.decoding and r.next_token is None:
-                rw, col = last_cell[r.rid]
-                r.next_token = int(am[rw, col])
+                r.next_token = picks[r.rid]
                 r.generated.append(r.next_token)
         for r in self._running:
             self._register_full_blocks(r)
         for r in [r for r in self._running if r.done]:
             self._finish(r, results)
+
+    def _run_step(self) -> torch.Tensor:
+        """Copy the packed inputs to the device and run the step (graph
+        replay or eager). Returns its logits, (rows, S, vocab) float32."""
+        if self._copied is not None:
+            for d, h in zip(self._inputs, self._host):
+                d.copy_(h, non_blocking=True)
+            self._copied.record()
+        if self.graph is not None:
+            self.last_logits = self.graph(self.pools)
+        else:
+            _, self.last_logits = self._packed_fn(self.params, self.pools, *self._inputs)
+        return self.last_logits
+
+    def _sample(self, logits: torch.Tensor, cells: list[tuple[Request, tuple[int, int]]]
+                ) -> list[int]:
+        """One token per (request, cell): greedy takes the first maximal
+        logit of every cell in one argmax; with a temperature each request
+        takes ``argmax(logits / T + g)``, g its own Gumbel noise, which is
+        ``jax.random.categorical``'s draw. One copy to the host either way."""
+        if not cells:
+            return []
+        if self.sc.temperature <= 0:
+            am = logits.argmax(dim=-1).cpu().numpy()
+            return [int(am[rw, cc]) for _, (rw, cc) in cells]
+        rows = torch.stack([logits[rw, cc] for _, (rw, cc) in cells])
+        noise = torch.stack([self._gumbel(r, rows.shape[-1]) for r, _ in cells])
+        return (rows / self.sc.temperature + noise).argmax(dim=-1).tolist()
+
+    def _gumbel(self, r: Request, vocab: int) -> torch.Tensor:
+        """Standard Gumbel noise (vocab,) float32 from ``r``'s generator:
+        ``-log(-log(u))`` with u uniform in [tiny, 1), as ``jax.random.gumbel``
+        draws it, so it stays finite."""
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.empty(vocab, dtype=torch.float32, device=self.device)
+        u.uniform_(tiny, 1.0, generator=r.gen)
+        return -torch.log(-torch.log(u))
 
     def _cow_pass(self, decoders, segments) -> bool:
         """Replace every block this step writes whose refcount exceeds 1 by a
@@ -346,9 +425,8 @@ class Scheduler:
                 self.allocator.free([bid])
         copies = [(r, s, d) for r, s, d in copies if r.state is RequestState.RUNNING]
         self._count("cow_copies", len(copies))
-        if copies:
-            self.pools = copy_blocks(self.pools, [s for _, s, _ in copies],
-                                     [d for _, _, d in copies])
+        if copies:  # in place: a captured step holds the pools' addresses
+            copy_blocks(self.pools, [s for _, s, _ in copies], [d for _, _, d in copies])
         return plan_live
 
     def _grow(self, r: Request, n_tokens: int = 1) -> None:

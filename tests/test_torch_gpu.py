@@ -528,3 +528,126 @@ def test_paged_attn_head_dims(dev, pages, hd, grp, s):
     args, vmax = _split_attn(dev, pages, 4, s, ctx, max_blk=96, hd=hd, grp=grp, kv=2, bs=8,
                              seed=hd)
     _check_split(pages, args, vmax, softcap=10.0 if s > 1 else 0.0, window=90 if s > 2 else 0)
+
+
+# ---------------------------------------------------------------------------
+# the packed step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _route_model(dev, route):
+    """The smoke llama3_2_1b on the card, quantized W4A4 + W8 ``mlp/wd`` with
+    dynamic outliers: the fused route with an int4 pool, or path A (plain
+    GEMM, streaming detection) with the default bf16 pool."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.qlinear import QLinearConfig
+    from repro_torch.core.quantspec import QuantSpec
+    from repro_torch.models.model import build as build_model
+    from repro_torch.models.model import quantize_model
+    from repro_torch.serving.engine import ServeConfig
+
+    model = build_model(get_smoke_config("llama3_2_1b"))
+    if route == "fused":
+        spec = QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.05),
+                         rules=[("mlp/wd", {"w_bits": 8})], kv_bits=4, kv_dtype="float32")
+    else:
+        spec = QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.05,
+                                            kernel="jnp"), rules=[("mlp/wd", {"w_bits": 8})])
+    qp = quantize_model(model, model.init(seed=0, device=dev), spec)
+    sc = ServeConfig.from_spec(spec, cache_len=64, block_size=8, prefill_chunk=8)
+    return model, qp, sc
+
+
+# the first prompt's prefill fills the first four steps alone: steps that
+# sample nothing, so nothing waits for the card between them
+GRAPH_PROMPTS = [list(range(40, 90)), list(range(1, 20)), [7, 8, 9], list(range(30, 42)),
+                 list(range(1, 17))]
+
+
+def _run_steps(model, qp, sc, graph: bool, n_steps: int = 6):
+    """``n_steps`` packed steps of one scheduler over ``GRAPH_PROMPTS`` with
+    every count set to 0 first: each step's logits, the pools after, and
+    the launch and dispatch counts."""
+    from repro_torch.core import kernel_routing as kr
+    from repro_torch.kernels import build
+    from repro_torch.serving.scheduler import Scheduler
+
+    sched = Scheduler(model, qp, sc, slots=3, graph=graph)
+    for p in GRAPH_PROMPTS:
+        sched.submit(p, 8)
+    build.reset_counts()
+    kr.reset()
+    logits, results = [], {}
+    for _ in range(n_steps):
+        sched.step(results)
+        logits.append(sched.last_logits.clone())
+    torch.cuda.synchronize()
+    counts = (dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA),
+              [dict(c) for c in kr.COUNTERS])
+    pools = [{k: v.clone() for k, v in layer.items()} for layer in sched.pools]
+    return sched, logits, pools, counts
+
+
+@pytest.mark.parametrize("route", ["fused", "path_a"])
+def test_graph_step_is_bit_equal_to_the_eager_step(dev, route):
+    """Graph replays against eager steps on the same inputs and fresh pools:
+    every step's logits and every pool tensor bit for bit (the same kernels
+    on the same inputs in the same order), and the same launch and dispatch
+    counts (the graph adds one captured run's counts per replay)."""
+    model, qp, sc = _route_model(dev, route)
+    g_sched, g_logits, g_pools, g_counts = _run_steps(model, qp, sc, graph=True)
+    _, e_logits, e_pools, e_counts = _run_steps(model, qp, sc, graph=False)
+    assert g_sched.graph is not None and g_sched.graph.capture_s > 0
+    assert g_sched.counters["decode_steps"] > 0 and g_sched.counters["prefill_chunks"] > 0
+    for g, e in zip(g_logits, e_logits):
+        assert torch.equal(g, e)
+    for g, e in zip(g_pools, e_pools):
+        assert g.keys() == e.keys()
+        for k in g:
+            assert torch.equal(g[k], e[k]), k
+    assert g_counts == e_counts
+    assert not any(g_counts[1].values())  # no plain version on a CUDA tensor
+    kernel = "fused_lut_gemm" if route == "fused" else "streaming_quantize_outlier"
+    assert g_counts[0][kernel] == 6 * model.cfg.n_layers * 6
+
+
+def test_graph_capture_syncs_nothing(dev):
+    """The warm-up and the capture of a packed step pass under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any op that
+    waits for the card."""
+    from repro_torch.serving.graph_step import GraphStep
+    from repro_torch.serving.speculative import make_packed_fn
+
+    model, qp, sc = _route_model(dev, "fused")
+    pools = model.init_caches(2, 64, sc.cache_dtype, quantized=sc.kv_quant, block_size=8,
+                              device=dev)
+    pos = torch.arange(10, dtype=torch.int32, device=dev).reshape(10, 1)
+    inputs = (torch.tensor([[0, 1, -1, -1], [2, -1, -1, -1]], dtype=torch.int32, device=dev),
+              torch.zeros(10, dtype=torch.int32, device=dev), pos, pos[:, 0] + 1,
+              (pos * 3) % 200)
+    step = GraphStep(make_packed_fn(model), qp, pools, inputs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = step(pools)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert logits.shape == (10, 1, model.cfg.vocab_size) and torch.isfinite(logits).all()
+
+
+def test_graph_pools_keep_their_addresses(dev):
+    """Three replays and a copy-on-write copy leave every pool tensor where
+    the graph captured it; a pool replaced by a new tensor is refused."""
+    from repro_torch.serving.graph_step import pool_ptrs
+    from repro_torch.serving.paged_cache import copy_blocks
+
+    model, qp, sc = _route_model(dev, "fused")
+    sched, _, _, _ = _run_steps(model, qp, sc, graph=True, n_steps=3)
+    ptrs = pool_ptrs(sched.pools)
+    assert ptrs == sched.graph.ptrs
+    copy_blocks(sched.pools, [1], [0])
+    sched.step({})
+    assert pool_ptrs(sched.pools) == ptrs
+    sched.pools[0]["pages_k_idx"] = sched.pools[0]["pages_k_idx"].clone()
+    with pytest.raises(RuntimeError, match="in place"):
+        sched.step({})

@@ -190,9 +190,9 @@ def test_engine_tokens_match_jax(artifact, n_blocks, seg_width):
 def test_engine_refuses_what_is_not_ported(artifact):
     path, _, _ = artifact
     art = load_quantized(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        ServingEngine(art.model, art.params,
-                      ServeConfig.from_spec(art.spec, cache_len=64, temperature=0.7))
+    with pytest.raises(ValueError, match="card"):  # no CUDA graph step on the CPU
+        ServingEngine(art.model, art.params, ServeConfig.from_spec(art.spec, cache_len=64),
+                      graph=True)
     float_pools = ServingEngine(art.model, art.params, ServeConfig(cache_len=64)).scheduler.pools
     assert float_pools[0]["pages_k"].dtype == torch.bfloat16  # QuantSpec() defaults now serve
     sc = ServeConfig.from_spec(art.spec, cache_len=64)
