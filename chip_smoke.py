@@ -26,6 +26,9 @@ Phases, each printing one JSON line:
               yardsticks with their device times too. Bucketize at A4 and
               A8 on 72 and 1024 rows, a ragged size and a view off 16-byte
               alignment, with ``Tensor.copy_`` of the same bytes as floor.
+              The fused LUT-GEMM also with an 8-entry (W3) weight codebook,
+              the draft model's, at the wq, wi and wd shapes and at the
+              draft loop's 8 rows.
 4. model   -- a 2-layer, full-width llama3_2_1b: one packed serving step on
               the card against the same step on the CPU (plain versions),
               for three seeds, on the fused route (int4 KV) and on path A
@@ -58,6 +61,25 @@ Phases, each printing one JSON line:
 8. demotion -- A5/A8 activations on the kernel GEMM routes and kernel
               detection under static thresholds run on CUDA tensors as
               counted fallbacks, as JAX demotes them.
+9. ring_step -- phase 5's model on the fixed-slot ring engine
+              (``paged=False``, int4 ring of 1024, 8 slots): a left-padded
+              batch's prefill, then three decode steps as CUDA graph replays
+              against eager steps, logits and rings bit for bit.
+   ring    -- phase 5's 16 requests on the ring engine, graph then eager:
+              equal tokens, per forward 96 LUT-GEMM and 96 top-k launches and
+              no attention kernel (the ring attends in plain PyTorch, as JAX's
+              does in XLA), decode ms per step, prefill ms, tokens/s, pad
+              fraction; a profile of the graph engine.
+   trained_ring -- the trained fixture on the ring, one prompt per batch:
+              ``expected.npz``'s tokens on all 5 prompts.
+10. speculative -- phase 5's requests with ``SpeculativeConfig(k=3)`` and
+              a W3 draft of the same weights (``DEFAULT_DRAFT_SPEC``): tokens
+              equal phase 5's graph engine's, exact launch counts for target
+              steps, draft catch-up steps and draft forwards; acceptance,
+              rounds, draft dispatches per round, ms per round, tokens/s.
+    draft_graph -- three draft rounds (catch-up, then the k + 1-forward
+              loop) as graph replays against eager: drafts and the draft
+              pool bit for bit.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -73,6 +95,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
 U32 = 2.0**-24  # float32 unit roundoff
@@ -89,6 +112,9 @@ TPU_KERNELS = {
     "bucketize": "src/repro/kernels/bucketize.py:37",
 }
 ROWS = 72  # token budget of the serving phase: 8 slots + 64 prefill tokens
+# launches per layer of one forward on the fused route with an int4 pool
+FUSED_PER_LAYER = {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1}
+FUSED_ROUTES = {"gemm_kernel": 6, "detect_kernel": 6}  # dispatches per layer, fused route
 # (M, K, boundaries, case, offset of x in a larger buffer)
 BUCKETIZE_CASES = [
     (ROWS, 2048, 15, "72x2048 A4"),
@@ -206,7 +232,7 @@ def act_indices(x, s, bounds, mul_form):
     return rank(x.float() / s, bounds)
 
 
-def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50):
+def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50, w_bits=4):
     """A LUT-GEMM kernel against its plain version: the fused kernel
     (bucketize in the tile) or, with ``fused=False``, the index kernel on
     plain activation indices. Two checks, then the times. (1) Gaussian
@@ -223,18 +249,20 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
     the same inputs must give the same bits (the split-K sums its partials in
     a fixed order). Bounds: the float32 one of the CUDA-core design
     (operations at 67 TFLOP/s) and the 3xTF32 one of the tensor-core design
-    (three products per term at 495 TFLOP/s)."""
+    (three products per term at 495 TFLOP/s). ``w_bits`` < 4 gives the nibble
+    tier a smaller weight codebook (W3: 8 entries, as the draft model's)."""
     import torch
 
     from repro_torch.core.codebook import boundaries_from_centroids
     from repro_torch.kernels.bucketize import bucketize_call
     from repro_torch.kernels.lut_gemm import (exact_sum_inputs, fused_lut_gemm,
-                                              fused_lut_gemm_plain, lut_gemm, lut_gemm_plain)
+                                              fused_lut_gemm_plain, lut_gemm, lut_gemm_plain,
+                                              random_packed)
     from repro_torch.models.model import _default_codebook
 
     a_book = _default_codebook(4, device=dev)
     bounds = boundaries_from_centroids(a_book).contiguous()
-    n_w = 256 if byte_packed else 16
+    n_w = 256 if byte_packed else 2**w_bits
     w_book = torch.sort(torch.randn(n_w, generator=gen, device=dev)).values
     mul_form = x_dtype == torch.bfloat16
     fkw = dict(byte_packed=byte_packed, mul_form=mul_form)
@@ -250,8 +278,7 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
         x[:, :: max(1, k // 7)] *= 12.0  # a few outlier channels
         x = x.to(x_dtype)
         s = torch.sqrt(torch.mean(x.float() ** 2, dim=-1, keepdim=True)).clamp(min=1e-12)
-        cols = n if byte_packed else n // 2
-        w = torch.randint(0, 256, (k, cols), generator=gen, device=dev, dtype=torch.uint8)
+        w = random_packed(k, n, n_w, byte_packed, gen)
         return (x, s, w) if fused else (act_indices(x, s, bounds, mul_form), w)
 
     args = inputs()
@@ -268,7 +295,7 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
     err = (y - ref).abs().max().item()
     tol = 2 * math.sqrt(k) * U32 * mag.max().item()
     x, s, wx, bx, ab, wb = [t.to(dev) for t in exact_sum_inputs(m, k, n, x_dtype, byte_packed,
-                                                                 seed=m + k + n)]
+                                                                 seed=m + k + n, w_bits=w_bits)]
     fused_ex = fused_lut_gemm(x, s, wx, bx, ab, wb, **fkw)
     if fused:
         ex_ref = fused_lut_gemm_plain(x, s, wx, bx, ab, wb, **fkw)
@@ -302,7 +329,7 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50)
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
     tc_ms, tc_by = bound(nbytes, 3 * 2.0 * m * n * k, TF32_FLOPS)
     res = dict(case=tag, M=m, K=k, N=n, x_dtype=str(x_dtype).removeprefix("torch."),
-               tier="byte" if byte_packed else "nibble", max_abs_err=err, tol=tol,
+               tier="byte" if byte_packed else "nibble", w_codebook=n_w, max_abs_err=err, tol=tol,
                one_flip=flip, **checks, repeat_equal=repeat_equal, ok=ok, kernel_ms=ms,
                kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
@@ -642,6 +669,12 @@ def phase_kernels(dev):
         (1024, 2048, 16384, bf, False, "mlp/wi prefill M=1024"),
     ]
     gemm = [gemm_case(dev, gen, *shape) for shape in gemm_shapes]
+    gen_w3 = torch.Generator(device=dev).manual_seed(3)  # the cases above keep their inputs
+    gemm += [gemm_case(dev, gen_w3, *shape, w_bits=3) for shape in (
+        (ROWS, 2048, 2048, bf, False, "attn/wq W3 bf16"),
+        (ROWS, 2048, 16384, bf, False, "mlp/wi shape W3 bf16"),
+        (ROWS, 8192, 2048, bf, False, "mlp/wd W3 nibble bf16 (the draft's)"),
+        (8, 2048, 2048, bf, False, "attn/wq W3 draft loop rows"))]
     topk = [
         topk_case(dev, gen, ROWS, 2048, 10, "normal"),
         topk_case(dev, gen, ROWS, 8192, 41, "normal"),
@@ -730,7 +763,8 @@ def packed_step_logits(model, params, device, prompts, kv_dtype=None):
     bs, max_blk = 16, 8
     n = sum(len(p) for p in prompts)
     pools = model.init_caches(len(prompts), max_blk * bs, kv_dtype or torch.float32,
-                              quantized=kv_dtype is None, block_size=bs, device=device)
+                              quantized=kv_dtype is None, layout="paged", block_size=bs,
+                              device=device)
     bt = np.full((len(prompts), max_blk), -1, np.int32)
     slot_ids, pos, tok = (np.zeros((n,), np.int32), np.zeros((n, 1), np.int32),
                           np.zeros((n, 1), np.int32))
@@ -876,14 +910,11 @@ def serve_once(model, params, sc, prompts, per_step: dict, routes: dict, graph: 
     every request got 64 in-vocabulary tokens."""
     import torch
 
-    import repro_torch.core.kernel_routing as kr
-    from repro_torch.kernels import build as kb
     from repro_torch.serving.engine import ServingEngine
 
     cfg = model.cfg
     engine = ServingEngine(model, params, sc, batch_slots=8, graph=graph)
-    kb.reset_counts()
-    kr.reset()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -892,29 +923,20 @@ def serve_once(model, params, sc, prompts, per_step: dict, routes: dict, graph: 
     wall = time.perf_counter() - t0
     st = engine.stats
     steps = st["packed_steps"]
-    launches = {k: kb.LAUNCHES[k] for k in kb.KERNELS}
-    expected = {k: per_step.get(k, 0) * cfg.n_layers * steps for k in kb.KERNELS}
-    dispatch = dict(gemm_kernel=kr.kernel_calls(), gemm_plain=kr.jnp_calls(),
-                    gemm_fallbacks=kr.fallback_count(), detect_kernel=kr.detect_kernel_calls(),
-                    detect_plain=kr.detect_jnp_calls(),
-                    detect_fallbacks=kr.detect_fallback_count())
-    expected_dispatch = {r: routes.get(r, 0) * cfg.n_layers * steps for r in dispatch}
-    plain = dict(kb.PLAIN_ON_CUDA)
+    counts = read_counts(per_step, steps, cfg.n_layers, routes)
     n_tok = sum(len(o) for o in outs)
     capture = st["graph_capture_s"]
     ok = (len(outs) == 16 and all(len(o) == 64 for o in outs)
           and all(0 <= t < cfg.vocab_size for o in outs for t in o)
-          and launches == expected and dispatch == expected_dispatch
-          and not any(plain.values()) and (capture is not None) == graph)
+          and counts.pop("counts_ok") and (capture is not None) == graph)
     res = dict(graph=graph, wall_s=wall, tokens_per_s=n_tok / wall,
                ms_per_step=wall / steps * 1e3, capture_s=capture,
                ms_per_step_after_capture=(wall - (capture or 0.0)) / steps * 1e3,
                generated_tokens=n_tok, packed_steps=steps, preemptions=st["preemptions"],
                prefix_hits=st["prefix_hits"], prefix_hit_tokens=st["prefix_hit_tokens"],
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
-               launches_per_step={k: v / steps for k, v in launches.items()},
-               expected_launches=expected, dispatch=dispatch,
-               expected_dispatch=expected_dispatch, plain_on_cuda=plain, ok=ok)
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step={k: v / steps for k, v in counts["launches"].items()},
+               **counts, ok=ok)
     return engine, outs, res
 
 
@@ -924,7 +946,8 @@ def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_l
     then, in the same call, an eager engine (``graph=False``) serves them on
     the same weights; each is profiled on a short extra run (``_profile``
     lines) before the next starts. Passes when both pass ``serve_once`` and
-    their tokens are equal. Returns the graph run's launches."""
+    their tokens are equal. Returns (ok, the graph run's launches, its tokens,
+    its tokens/s)."""
     cfg = model.cfg
     prompts = serve_prompts(cfg.vocab_size)
     runs, tokens = {}, {}
@@ -940,7 +963,7 @@ def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_l
          prompt_tokens=sum(len(p) for p in prompts), tokens_equal=equal,
          graph_speedup=runs["eager"]["ms_per_step"] / runs["graph"]["ms_per_step"],
          card=smi_line, ok=ok, **runs, **extra)
-    return ok, runs["graph"]["launches"]
+    return ok, runs["graph"]["launches"], tokens["graph"], runs["graph"]["tokens_per_s"]
 
 
 def phase_graph_step(phase: str, model, params, sc, n_steps: int = 3) -> bool:
@@ -973,28 +996,36 @@ def phase_graph_step(phase: str, model, params, sc, n_steps: int = 3) -> bool:
 
 
 def phase_serve(dev, smi_line):
-    """Phase 5: the fused route (fused LUT-GEMM + top-k kernels, int4 KV)."""
+    """Phase 5: the fused route (fused LUT-GEMM + top-k kernels, int4 KV).
+    The same random weights are also quantized under ``DEFAULT_DRAFT_SPEC``
+    (W3, a W4 ``mlp/wi`` guard) for phase 10's draft model. Returns the
+    serve phase's result and the graph engine's tokens and tokens/s."""
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import build, quantize_model
     from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.speculative import DEFAULT_DRAFT_SPEC
 
     model = build(get_config("llama3_2_1b"))
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     qp = quantize_model(model, params, main_spec())
-    del params
     torch.cuda.synchronize()
     ptq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    draft = quantize_model(model, params, DEFAULT_DRAFT_SPEC)
+    torch.cuda.synchronize()
+    draft_ptq_s = time.perf_counter() - t0
+    del params
     sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
     step_ok = phase_graph_step("graph_step", model, qp, sc)
     # every step runs every layer: 6 projections (each one LUT-GEMM and one
     # top-k) and one attention per layer, all on their kernels
-    ok, launches = serve_run(
-        "serve", model, qp, sc, {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1},
-        {"gemm_kernel": 6, "detect_kernel": 6}, smi_line, dict(ptq_s=ptq_s))
-    return ok, step_ok, launches, model, qp
+    ok, launches, tokens, tps = serve_run(
+        "serve", model, qp, sc, FUSED_PER_LAYER, FUSED_ROUTES, smi_line,
+        dict(ptq_s=ptq_s, draft_ptq_s=draft_ptq_s))
+    return ok, step_ok, launches, model, qp, draft, tokens, tps
 
 
 def phase_serve_a(model, qp, smi_line):
@@ -1011,10 +1042,314 @@ def phase_serve_a(model, qp, smi_line):
     step_ok = phase_graph_step("graph_step_a", model, qa, sc)
     # 6 projections per layer: one plain GEMM and one streaming quantize +
     # detect launch each; one float-page attention per layer
-    ok, launches = serve_run("serve_a", model, qa, sc,
-                             {"streaming_quantize_outlier": 6, "paged_attn_bf16": 1},
-                             {"gemm_plain": 6, "detect_kernel": 6}, smi_line, {})
+    ok, launches, _, _ = serve_run("serve_a", model, qa, sc,
+                                   {"streaming_quantize_outlier": 6, "paged_attn_bf16": 1},
+                                   {"gemm_plain": 6, "detect_kernel": 6}, smi_line, {})
     return ok, step_ok, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 9-12: the fixed-slot ring engine and speculative decoding
+# ---------------------------------------------------------------------------
+
+def reset_counts() -> None:
+    """Every launch, plain-version and dispatch count to 0."""
+    import repro_torch.core.kernel_routing as kr
+    from repro_torch.kernels import build as kb
+
+    kb.reset_counts()
+    kr.reset()
+
+
+def read_counts(per_layer: dict, forwards: int, layers: int,
+                routes: dict = FUSED_ROUTES) -> dict:
+    """The launch, dispatch and plain-on-CUDA counts since ``reset_counts``
+    beside what ``forwards`` model forwards of ``layers`` layers give when
+    each layer launches ``per_layer[k]`` of kernel k and takes dispatch route
+    r ``routes[r]`` times."""
+    import repro_torch.core.kernel_routing as kr
+    from repro_torch.kernels import build as kb
+
+    launches = {k: kb.LAUNCHES[k] for k in kb.KERNELS}
+    dispatch = dict(gemm_kernel=kr.kernel_calls(), gemm_plain=kr.jnp_calls(),
+                    gemm_fallbacks=kr.fallback_count(), detect_kernel=kr.detect_kernel_calls(),
+                    detect_plain=kr.detect_jnp_calls(),
+                    detect_fallbacks=kr.detect_fallback_count())
+    exp_launches = {k: per_layer.get(k, 0) * layers * forwards for k in kb.KERNELS}
+    exp_dispatch = {r: routes.get(r, 0) * layers * forwards for r in dispatch}
+    plain = dict(kb.PLAIN_ON_CUDA)
+    return dict(launches=launches, expected_launches=exp_launches, dispatch=dispatch,
+                expected_dispatch=exp_dispatch, plain_on_cuda=plain,
+                counts_ok=(launches == exp_launches and dispatch == exp_dispatch
+                           and not any(plain.values())))
+
+
+# the ring attends in plain PyTorch (as JAX's ring does, in XLA): no attention kernel
+RING_PER_LAYER = {"fused_lut_gemm": 6, "topk_outlier": 6}
+
+
+def ring_config(cache_len: int = 1024, spec=None):
+    """The fixed-slot engine on the main spec: int4 K-Means ring slots."""
+    from repro_torch.serving.engine import ServeConfig
+
+    return ServeConfig.from_spec(spec or main_spec(), paged=False, cache_len=cache_len)
+
+
+def ring_steps(engine, prompts, n_steps: int):
+    """Prefill one left-padded batch on a fixed-slot engine, then ``n_steps``
+    decode steps; returns each step's logits and every ring tensor after."""
+    import torch
+
+    plen = max(len(p) for p in prompts)
+    pads = [plen - len(p) for p in prompts]
+    toks = torch.tensor([[0] * n + p for n, p in zip(pads, prompts)], dtype=torch.int32,
+                        device=engine.device)
+    caches = engine._ring_caches(pads)
+    tok, caches, _ = engine._prefill(engine.params, caches, {"tokens": toks})
+    logits = []
+    for pos in range(plen, plen + n_steps):
+        tok, step_logits = engine._decode_step(caches, tok, pos)
+        logits.append(step_logits.clone())
+        tok = tok.clone()
+    torch.cuda.synchronize()
+    return logits, [{k: v.clone() for k, v in layer.items()} for layer in engine._ring]
+
+
+def phase_ring_step(model, params, n_steps: int = 3) -> bool:
+    """Phase 9a: the ring phase's first batch (8 left-padded prompts), then
+    ``n_steps`` decode steps as graph replays against eager steps, each
+    engine on its own ring: every step's logits and every ring tensor bit for
+    bit (the same kernels, on the same inputs, in the same order)."""
+    import torch
+
+    from repro_torch.serving.engine import ServingEngine
+
+    prompts = serve_prompts(model.cfg.vocab_size)[:8]
+    got, capture = {}, None
+    for graph in (True, False):
+        engine = ServingEngine(model, params, ring_config(), batch_slots=8, graph=graph)
+        got[graph] = ring_steps(engine, prompts, n_steps)
+        if graph:
+            capture = engine.stats["graph_capture_s"]
+    logits_equal = [torch.equal(a, b) for a, b in zip(got[True][0], got[False][0])]
+    rings_equal = all(torch.equal(a[k], b[k]) for a, b in zip(got[True][1], got[False][1])
+                      for k in a)
+    finite = all(bool(torch.isfinite(x).all()) for x in got[True][0])
+    ok = all(logits_equal) and rings_equal and finite and capture is not None
+    emit("ring_step", steps=n_steps, batch=len(prompts), logits_equal=logits_equal,
+         rings_equal=rings_equal, finite=finite, capture_s=capture, ok=ok)
+    return ok
+
+
+def ring_once(model, params, prompts, graph: bool) -> tuple[list, dict, object]:
+    """Serve ``prompts`` x 64 new tokens on the fixed-slot engine (8 slots,
+    int4 ring of 1024), the decode step as a CUDA graph or eager, with every
+    count set to 0 first; prefills are timed apart (a sync on each side).
+    Returns the tokens, the result and the engine."""
+    import torch
+
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, params, ring_config(), batch_slots=8, graph=graph)
+    prefill_s = []
+    prefill = engine._prefill
+
+    def timed_prefill(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill(*args)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    engine._prefill = timed_prefill
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    counts = read_counts(RING_PER_LAYER, st["prefills"] + st["steps"], model.cfg.n_layers)
+    capture = st["graph_capture_s"]
+    decode_s = wall - sum(prefill_s) - (capture or 0.0)
+    n_tok = sum(len(o) for o in outs)
+    ok = (len(outs) == len(prompts) and all(len(o) == 64 for o in outs)
+          and all(0 <= t < model.cfg.vocab_size for o in outs for t in o)
+          and counts["counts_ok"] and (capture is not None) == graph)
+    return outs, dict(graph=graph, wall_s=wall, tokens_per_s=n_tok / wall,
+                      prefills=st["prefills"], decode_steps=st["steps"],
+                      prefill_ms=[t * 1e3 for t in prefill_s], capture_s=capture,
+                      ms_per_decode_step=decode_s / st["steps"] * 1e3,
+                      decode_tokens_per_s=(n_tok - len(prompts)) / decode_s,
+                      pad_fraction=st["pad_fraction"], generated_tokens=n_tok,
+                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **counts,
+                      ok=ok), engine
+
+
+def phase_ring(model, params, smi_line) -> bool:
+    """Phase 9b: the serve phase's 16 requests on the fixed-slot ring engine
+    (two left-padded batches of 8), the decode step as a CUDA graph, then on
+    an eager engine in the same call: equal tokens, and per forward (prefill
+    or decode step) every projection through the fused LUT-GEMM and the
+    top-k kernel (96 each), no attention kernel, no plain route."""
+    prompts = serve_prompts(model.cfg.vocab_size)
+    tokens, runs = {}, {}
+    for graph in (True, False):
+        name = "graph" if graph else "eager"
+        tokens[name], runs[name], engine = ring_once(model, params, prompts, graph)
+        if graph:
+            phase_profile("ring_profile", engine, model.cfg.vocab_size, name, new_tokens=40)
+        del engine
+    equal = tokens["graph"] == tokens["eager"]
+    ok = equal and runs["graph"]["ok"] and runs["eager"]["ok"]
+    emit("ring", arch=model.cfg.arch_id, layers=model.cfg.n_layers, requests=len(prompts),
+         cache_len=1024, kv="int4", tokens_equal=equal,
+         graph_speedup=runs["eager"]["ms_per_decode_step"] / runs["graph"]["ms_per_decode_step"],
+         card=smi_line, ok=ok, **runs)
+    return ok
+
+
+def phase_trained_ring(dev) -> bool:
+    """Phase 9c: the committed JAX-trained oasis_7b smoke artifact on the ring
+    (its spec's int4 slots), one prompt per batch, the decode step as a CUDA
+    graph: every prompt's 24 tokens equal ``expected.npz``'s (what JAX's
+    engine gives, paged or ring), every forward through the fused kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.artifact import load_quantized
+    from repro_torch.serving.engine import ServingEngine
+
+    fixture = ROOT / "tests" / "fixtures" / "trained_oasis_smoke"
+    with np.load(fixture / "expected.npz") as z:
+        exp = {k: z[k] for k in z.files}
+    want = exp["tokens"].tolist()
+    prompts = [list(p.encode()) for p in exp["prompts"]]
+    art = load_quantized(str(fixture), device=dev)
+    cache_len = json.loads(str(exp["serve_config"]))["cache_len"]
+    engine = ServingEngine(art.model, art.params, ring_config(cache_len, art.spec),
+                           batch_slots=1)
+    reset_counts()
+    got = engine.generate(prompts, max_new_tokens=len(want[0]))
+    torch.cuda.synchronize()
+    st = engine.stats
+    counts = read_counts(RING_PER_LAYER, st["prefills"] + st["steps"], art.model.cfg.n_layers)
+    prefix = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), len(w))
+              for g, w in zip(got, want)]
+    ok = got == want and counts["counts_ok"] and st["graph_capture_s"] is not None
+    emit("trained_ring", arch=art.model.cfg.arch_id, prompts=list(map(str, exp["prompts"])),
+         new_tokens=len(want[0]), tokens_equal=got == want, common_prefix=prefix,
+         prefills=st["prefills"], decode_steps=st["steps"], capture_s=st["graph_capture_s"],
+         **counts, ok=ok)
+    return ok
+
+
+def phase_speculative(model, qp, draft, serve_tokens, serve_tps, smi_line) -> bool:
+    """Phase 10a: the serve phase's target and 16 requests with
+    ``SpeculativeConfig(k=3)``; the draft is the same weights quantized under
+    ``DEFAULT_DRAFT_SPEC`` (W3, W4 ``mlp/wi``, A4, dynamic outliers, int4
+    draft KV). The target's packed step keeps its 72-row grid (one CUDA
+    graph); the draft's catch-up step and its loop of k + 1 forwards are a
+    graph each. Passes when the tokens equal the serve phase's graph engine's
+    exactly, and each kernel launched exactly per target step, draft
+    catch-up step and draft forward (96 / 96 / 16 per forward), with no plain
+    route. The draft's propose time is timed apart (a sync before it; it
+    ends in its own copy to the host)."""
+    import torch
+
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.speculative import DEFAULT_DRAFT_SPEC, SpeculativeConfig
+
+    k = 3
+    sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64,
+                               speculative=SpeculativeConfig(k=k))
+    engine = ServingEngine(model, qp, sc, batch_slots=8, draft=(model, draft, DEFAULT_DRAFT_SPEC))
+    runner = engine.scheduler.draft
+    propose, draft_s = runner.propose, []
+
+    def timed_propose(reqs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = propose(reqs)
+        draft_s.append(time.perf_counter() - t)
+        return out
+
+    runner.propose = timed_propose
+    prompts = serve_prompts(model.cfg.vocab_size)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    rounds = st["decode_steps"]  # each target step with decoders ran one draft loop
+    catch_ups = st["draft_steps"] - rounds
+    forwards = st["packed_steps"] + catch_ups + (k + 1) * rounds
+    counts = read_counts(FUSED_PER_LAYER, forwards, model.cfg.n_layers)
+    n_tok = sum(len(o) for o in outs)
+    equal = outs == serve_tokens
+    captures = dict(target_capture_s=st["graph_capture_s"], draft_capture_s=st["draft_capture_s"])
+    ok = (equal and counts["counts_ok"] and engine.scheduler.rows == ROWS
+          and None not in captures.values())
+    emit("speculative", arch=model.cfg.arch_id, k=k, requests=len(prompts),
+         tokens_equal_serve=equal,
+         rows_equal_serve=[o == w for o, w in zip(outs, serve_tokens)],
+         acceptance_rate=st["acceptance_rate"], spec_rounds=st["spec_rounds"],
+         drafted_tokens=st["drafted_tokens"], accepted_tokens=st["accepted_tokens"],
+         rolled_back_tokens=st["rolled_back_tokens"], target_steps=st["packed_steps"],
+         rounds=rounds, draft_dispatches=st["draft_steps"], draft_catch_up_steps=catch_ups,
+         draft_dispatches_per_round=st["draft_steps"] / rounds, wall_s=wall,
+         ms_per_round=wall / rounds * 1e3, draft_s=sum(draft_s),
+         draft_ms_per_round=sum(draft_s) / rounds * 1e3,
+         target_ms_per_round=(wall - sum(draft_s)) / rounds * 1e3, tokens_per_s=n_tok / wall,
+         serve_graph_tokens_per_s=serve_tps, speedup_over_serve=n_tok / wall / serve_tps,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi_line, **captures,
+         **counts, ok=ok)
+    runner.propose = propose
+    phase_profile("speculative_profile", engine, model.cfg.vocab_size, "graph")
+    return ok
+
+
+def phase_draft_graph(model, draft, n_rounds: int = 3) -> bool:
+    """Phase 10b: ``n_rounds`` draft rounds over 8 slots (the serve prompts
+    as contexts: catch-up steps, then the k + 1-forward loop; between rounds
+    each row accepts 0-3 drafts and is synced back) by graph replays against
+    an eager runner on its own pool: the drafts and every draft pool tensor
+    bit for bit."""
+    import torch
+
+    from repro_torch.serving.speculative import DraftRunner
+
+    k, prompts = 3, serve_prompts(model.cfg.vocab_size)[:8]
+    got = {}
+    for graph in (True, False):
+        runner = DraftRunner(model, draft, slots=8, cache_len=1024, k=k, block_size=16,
+                             kv_quant=True, graph=graph)
+        contexts = [list(p[:-1]) for p in prompts]
+        nxt = [p[-1] for p in prompts]
+        rounds = []
+        for rnd in range(n_rounds):
+            d = runner.propose([(i, i, contexts[i], nxt[i], k) for i in range(8)])
+            rounds.append(d)
+            for i in range(8):
+                acc = (i + rnd) % (k + 1)
+                contexts[i] += [nxt[i]] + d[i][:acc]
+                nxt[i] = (d[i][acc] + 1) % model.cfg.vocab_size if acc < k else d[i][-1]
+                runner.sync(i, len(contexts[i]))
+        torch.cuda.synchronize()
+        got[graph] = (rounds, [{key: v.clone() for key, v in layer.items()}
+                               for layer in runner.pools], runner.steps, runner.capture_s)
+    drafts_equal = got[True][0] == got[False][0]
+    pools_equal = all(torch.equal(a[key], b[key]) for a, b in zip(got[True][1], got[False][1])
+                      for key in a)
+    ok = drafts_equal and pools_equal and got[True][3] is not None and got[False][3] is None
+    emit("draft_graph", rounds=n_rounds, slots=8, k=k, dispatches=got[True][2],
+         drafts_equal=drafts_equal, pools_equal=pools_equal, capture_s=got[True][3], ok=ok)
+    return ok
 
 
 def phase_quickstart(dev) -> tuple[bool, dict, float]:
@@ -1080,16 +1415,16 @@ def phase_trained_parity(dev) -> bool:
     got = engine.generate(prompts, max_new_tokens=len(want[0]))
     torch.cuda.synchronize()
     steps, layers = engine.stats["packed_steps"], art.model.cfg.n_layers
-    per_step = {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1}
     launches = {k: kb.LAUNCHES[k] for k in kb.KERNELS}
-    expected = {k: per_step.get(k, 0) * layers * steps for k in kb.KERNELS}
+    expected = {k: FUSED_PER_LAYER.get(k, 0) * layers * steps for k in kb.KERNELS}
     plain = dict(kb.PLAIN_ON_CUDA)
     fallbacks = kr.fallback_count() + kr.detect_fallback_count()
     prefix = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), len(w))
               for g, w in zip(got, want)]
 
     pools = art.model.init_caches(engine.slots, sc.cache_len, sc.cache_dtype,
-                                  quantized=sc.kv_quant, block_size=sc.block_size, device=dev)
+                                  quantized=sc.kv_quant, layout="paged", block_size=sc.block_size,
+                                  device=dev)
     step_in = [torch.from_numpy(exp[k]).to(dev) for k in ("bt", "slot_ids", "pos", "ctx", "tok")]
     _, logits = make_packed_fn(art.model)(art.params, pools, *step_in)
     valid = torch.from_numpy(exp["pos"][:, 0] >= 0)
@@ -1160,24 +1495,30 @@ def phase_demotions(dev) -> bool:
     return ok_all
 
 
-def phase_profile(phase: str, engine, vocab: int, label: str) -> None:
+def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 8) -> None:
     """Where a serving step's time goes: ``torch.profiler`` over a short
-    extra run (4 requests, 8 new tokens) on a serve phase's engine. For the
-    graph engine, ``kernels_seen`` says whether the profiler saw the kernels
-    that graph replays launch."""
+    extra run (4 requests, ``new_tokens`` new tokens) on a serve phase's
+    engine (on the fixed-slot engine a step is a forward: a prefill or a
+    decode step, so the ring's profile runs 40 new tokens, 39 decode steps
+    to one prefill). For the
+    graph engine, ``kernels_seen`` says whether the profiler saw the LUT-GEMM
+    or attention kernels that graph replays launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator().manual_seed(4)
     prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist() for n in (40, 70, 100, 130)]
-    steps0 = engine.stats["packed_steps"]
+    # steps: the scheduler's packed steps, or the fixed-slot engine's forwards
+    # (prefills and decode steps)
+    count = lambda st: st["packed_steps"] if engine.paged else st["prefills"] + st["steps"]
+    steps0 = count(engine.stats)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.generate(prompts, max_new_tokens=8)
+        engine.generate(prompts, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = engine.stats["packed_steps"] - steps0
+    steps = count(engine.stats) - steps0
     # kernel events only: an aten op's row repeats the time of its kernels
     rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -1185,10 +1526,11 @@ def phase_profile(phase: str, engine, vocab: int, label: str) -> None:
     busy_s = sum(r[0] for r in rows) / 1e6
     attn = [(us, c) for us, k, c in rows if "paged_attn" in k]
     emit(phase, engine=label, wall_s=wall, packed_steps=steps,
+         step="packed step" if engine.paged else "forward: prefill or decode step",
          ms_per_step=wall / steps * 1e3, device_busy_s=busy_s,
          device_ms_per_step=busy_s * 1e3 / steps,
          device_busy_share=busy_s / wall if rows else None,
-         kernels_seen=bool(attn),
+         kernels_seen=any("lut_gemm" in k or "paged_attn" in k for _, k, _ in rows),
          attention_device_ms_per_step=sum(us for us, _ in attn) / 1e3 / steps,
          attention_calls=sum(c for _, c in attn),
          top=[{"op": k, "device_ms": us / 1e3, "calls": c} for us, k, c in rows[:12]])
@@ -1223,7 +1565,7 @@ def main() -> int:
         failures += [f"{name_k}: {c['case']}" for c in cases if not c["ok"]]
     if not phase_model(dev):
         failures.append("model check")
-    ok, step_ok, launches, model, qp = phase_serve(dev, smi_line)
+    ok, step_ok, launches, model, qp, draft, serve_tokens, serve_tps = phase_serve(dev, smi_line)
     if not ok:
         failures.append("serve")
     if not step_ok:
@@ -1233,7 +1575,20 @@ def main() -> int:
         failures.append("serve path A")
     if not step_ok:
         failures.append("graph step path A")
-    del model, qp
+    for name_p, run in (("ring step", lambda: phase_ring_step(model, qp)),
+                        ("ring", lambda: phase_ring(model, qp, smi_line)),
+                        ("trained ring", lambda: phase_trained_ring(dev)),
+                        ("speculative", lambda: phase_speculative(model, qp, draft, serve_tokens,
+                                                                  serve_tps, smi_line)),
+                        ("draft graph", lambda: phase_draft_graph(model, draft))):
+        try:
+            passed = run()
+        except Exception:  # report it and run the other phases; the run fails
+            traceback.print_exc()
+            passed = False
+        if not passed:
+            failures.append(name_p)
+    del model, qp, draft
     ok, launches_qs, qs_err = phase_quickstart(dev)
     if not ok:
         failures.append("quickstart")

@@ -31,7 +31,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bucketize import rank
 
 __all__ = ["fused_lut_gemm", "fused_lut_gemm_plain", "lut_gemm", "lut_gemm_plain",
-           "exact_sum_inputs", "default_blocks", "check_blocks", "TILES", "STAGE_K"]
+           "exact_sum_inputs", "random_packed", "default_blocks", "check_blocks", "TILES",
+           "STAGE_K"]
 
 NAME = "fused_lut_gemm"
 INDEX = "lut_gemm"
@@ -51,10 +52,11 @@ def _nudge(v: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
 
 
 def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: bool,
-                     seed: int = 0):
+                     seed: int = 0, w_bits: int = 4):
     """Kernel inputs on which the float32 sum is exact and the index choice
     is as hard as it gets; returns ``(x, scale, w_packed, boundaries, a_book,
-    w_book)`` on the CPU, for ``k <= 11008``.
+    w_book)`` on the CPU, for ``k <= 11008``. The nibble tier's weight
+    codebook has ``2 ** w_bits`` entries (W3: 8), the byte tier's 256.
 
     Both codebooks lie on a 1/8 grid with magnitudes <= 3, so each product is
     a multiple of 1/64 and every partial sum over K <= 11008 stays below 2^24
@@ -72,9 +74,9 @@ def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: 
     g = torch.Generator().manual_seed(seed)
     a_book = torch.round(_default_codebook(4) * 8) / 8
     bounds = boundaries_from_centroids(a_book).contiguous()
-    n_w = 256 if byte_packed else 16
+    n_w = 256 if byte_packed else 2**w_bits
     w_book = torch.sort(torch.round(torch.randn(n_w, generator=g).clamp(-3, 3) * 8) / 8).values
-    w = torch.randint(0, 256, (k, n if byte_packed else n // 2), generator=g, dtype=torch.uint8)
+    w = random_packed(k, n, n_w, byte_packed, g)
     x = torch.randn((m, k), generator=g)
     x[:, :: max(1, k // 7)] *= 12.0  # a few outlier channels
     hug = torch.rand((m, k), generator=g) < 0.25
@@ -98,6 +100,19 @@ def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: 
         j = torch.randint(0, nonzero.numel(), (m, k), generator=g)
         x = torch.where(hug, _nudge(s * nonzero[j], steps), x * s)
     return x.contiguous(), s.contiguous(), w, bounds, a_book, w_book
+
+
+def random_packed(k: int, n: int, n_w: int, byte_packed: bool,
+                  gen: torch.Generator) -> torch.Tensor:
+    """Uniform weight indices below ``n_w`` for a (K, N) weight, packed as
+    the kernels read them: (K, N) bytes, or (K, N/2) nibble pairs (low
+    nibble first). Draws on ``gen`` where the device is."""
+    if byte_packed or n_w == 16:
+        return torch.randint(0, 256, (k, n if byte_packed else n // 2), generator=gen,
+                             dtype=torch.uint8, device=gen.device)
+    lo, hi = torch.randint(0, n_w, (2, k, n // 2), generator=gen, dtype=torch.uint8,
+                           device=gen.device)
+    return lo | (hi << 4)
 
 
 def _index_product(a_idx, w_packed, a_book, w_book, byte_packed: bool) -> torch.Tensor:

@@ -2,16 +2,28 @@
 
 Every projection is either a :class:`Dense` (float weight ``(K, N)``) or a
 :class:`~repro_torch.core.qlinear.QLinear`; :func:`dense_apply` calls either.
-Attention is ported on two branches: no cache (training / full-sequence
-logits) and the paged KV pool of the serving scheduler -- int4 K-Means or
-float (bfloat16 / float32) pages -- where ``_paged_write`` stores this call's
-keys and values and ``_paged_attend`` runs the pool's paged-attention kernel
-wrapper (or its plain version under ``REPRO_PAGED_KERNEL=0``). The pools are
-updated in place (``index_copy_``): PyTorch tensors are mutable, and a
-functional copy of a full-width pool per layer per step would double its
-memory traffic. Nothing on the paged branch reads a tensor on the host or
-copies one from it, so the serving scheduler can capture the whole packed
-step as one CUDA graph.
+Attention runs on three branches:
+
+* no cache (training / full-sequence logits): ``_attn_dispatch`` takes the
+  dense softmax, or ``_sdpa_flash`` -- an online-softmax loop over query and
+  key chunks in plain PyTorch, as JAX computes it outside any kernel -- once
+  ``Sq * Sk`` passes 2048^2 and the config sets ``attn_chunk``;
+* the ring-buffer cache of the fixed-slot engine (``init_kv_cache``): float
+  or int4 K-Means slots per request row, written at ``(start + i) % C`` by
+  ``_cache_write`` and read back whole by ``_cache_read``, then the same
+  dispatch with the per-row ``pad_len`` masking a left-padded prompt's pad
+  keys;
+* the paged KV pool of the serving scheduler -- int4 K-Means or float
+  (bfloat16 / float32) pages -- where ``_paged_write`` stores this call's
+  keys and values and ``_paged_attend`` runs the pool's paged-attention
+  kernel wrapper (or its plain version under ``REPRO_PAGED_KERNEL=0``).
+
+Both caches are updated in place (``index_copy_``): PyTorch tensors are
+mutable, and a functional copy of a full-width cache per layer per step
+would double its memory traffic. Nothing on the paged branch or on the
+ring's decode branch reads a tensor on the host or copies one from it, so
+the serving scheduler and the fixed-slot engine can capture their steps as
+CUDA graphs.
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ from torch import nn
 from repro_torch.core import kernel_routing as kr
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
-from repro_torch.core.quantize import pack_int4
+from repro_torch.core.quantize import pack_int4, unpack_int4
 from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
                                             paged_attn_plain, paged_attn_quant_plain)
 
@@ -36,6 +48,7 @@ __all__ = [
     "rope_apply",
     "Attention",
     "MLP",
+    "init_kv_cache",
     "init_paged_kv_cache",
     "attention_apply",
     "mlp_apply",
@@ -104,18 +117,118 @@ class MLP(nn.Module):
 # no-cache attention
 # ---------------------------------------------------------------------------
 
-def _sdpa_dense(q, k, v, q_pos, k_pos, window: int, softcap: float) -> torch.Tensor:
+def _mask(q_pos, k_pos, window: int, causal: bool) -> torch.Tensor:
+    """(Sq, Sk) bool validity mask; ``k_pos == -1`` marks empty cache slots."""
+    valid = (k_pos >= 0)[None, :]
+    if causal:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+    return valid
+
+
+def _mask_scores(s, msk, k_pos, k_min) -> torch.Tensor:
+    """Apply an (Sq, Sk) mask to scores s (B, KV, G, Sq, Sk). ``k_min`` (B,)
+    also masks keys at positions below ``k_min[b]`` per row: the pad tokens a
+    left-padded prompt wrote at positions [0, pad_len)."""
+    neg = torch.full((), _NEG_INF, dtype=s.dtype, device=s.device)
+    if k_min is not None:
+        mb = msk[None] & (k_pos[None, None, :] >= k_min[:, None, None])  # (B, Sq, Sk)
+        return torch.where(mb[:, None, None], s, neg)
+    return torch.where(msk, s, neg)
+
+
+def _sdpa_dense(q, k, v, q_pos, k_pos, window: int, causal: bool, softcap: float,
+                k_min=None) -> torch.Tensor:
     """q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, KV, G, hd)."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    valid = (k_pos >= 0)[None, :] & (k_pos[None, :] <= q_pos[:, None])
-    if window > 0:
-        valid &= k_pos[None, :] > q_pos[:, None] - window
-    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    s = _mask_scores(s, _mask(q_pos, k_pos, window, causal), k_pos, k_min)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgst,btkh->bskgh", p, v.float()).to(q.dtype)
+
+
+def _sdpa_flash(q, k, v, q_pos, k_pos, window: int, causal: bool, softcap: float,
+                q_chunk: int, k_chunk: int, k_min=None) -> torch.Tensor:
+    """Online-softmax attention over query and key chunks, JAX's nested
+    scan as two Python loops: the scores buffer is (B, KV, G, q_chunk,
+    k_chunk) instead of (.., Sq, Sk). The tails are padded to whole chunks
+    as JAX pads them (query rows at position 0, discarded; keys at position
+    -1, masked)."""
+    b, sq, kvh, g, hd = q.shape
+    sk = k.shape[1]
+    q_chunk, k_chunk = min(q_chunk, sq), min(k_chunk, sk)
+    pq, pk = (-sq) % q_chunk, (-sk) % k_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq), value=0)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        k_pos = F.pad(k_pos, (0, pk), value=-1)
+    scale = hd ** -0.5
+    outs = []
+    for i in range(0, sq + pq, q_chunk):
+        qf, qp = q[:, i : i + q_chunk].float(), q_pos[i : i + q_chunk]
+        m = torch.full((b, kvh, g, q_chunk), _NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kvh, g, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kvh, g, q_chunk, hd), dtype=torch.float32, device=q.device)
+        for j in range(0, sk + pk, k_chunk):
+            kp = k_pos[j : j + k_chunk]
+            s = torch.einsum("bskgh,btkh->bkgst", qf, k[:, j : j + k_chunk].float()) * scale
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            s = _mask_scores(s, _mask(qp, kp, window, causal), kp, k_min)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgst,btkh->bkgsh", p,
+                                                        v[:, j : j + k_chunk].float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+def _attn_dispatch(q, k, v, q_pos, k_pos, window: int, causal: bool, softcap: float, cfg,
+                   k_min=None) -> torch.Tensor:
+    """The flash loop once ``Sq * Sk`` passes 2048^2 and the config sets
+    ``attn_chunk`` (both chunks that long), else the dense softmax."""
+    if cfg.attn_chunk > 0 and q.shape[1] * k.shape[1] > 4_194_304:
+        return _sdpa_flash(q, k, v, q_pos, k_pos, window, causal, softcap,
+                           cfg.attn_chunk, cfg.attn_chunk, k_min=k_min)
+    return _sdpa_dense(q, k, v, q_pos, k_pos, window, causal, softcap, k_min=k_min)
+
+
+# ---------------------------------------------------------------------------
+# ring-buffer KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
+                  quantized: bool = False, device: torch.device | str = "cpu") -> dict:
+    """Ring-buffer KV cache of one attention layer: ``slot_pos`` (C,) holds
+    the absolute position stored in each slot (-1 = empty); ``k`` / ``v``
+    (batch, C, KV, hd) in ``dtype``, or with ``quantized`` int4 K-Means
+    ``k_idx`` / ``v_idx`` (two indices per byte) with per-(token, head)
+    float32 scales and the structural 16-entry codebook."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    base = {"slot_pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device)}
+    zeros = lambda last, dt: torch.zeros((batch, cache_len, kv, last), dtype=dt, device=device)
+    if not quantized:
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        return base | {"k": zeros(hd, dt), "v": zeros(hd, dt)}
+    from repro_torch.models.model import _default_codebook
+
+    return base | {
+        "k_idx": zeros(hd // 2, torch.uint8),
+        "v_idx": zeros(hd // 2, torch.uint8),
+        "k_scale": zeros(1, torch.float32),
+        "v_scale": zeros(1, torch.float32),
+        "kv_codebook": _default_codebook(4, device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +287,44 @@ def _kv_quantize(x: torch.Tensor, codebook: torch.Tensor):
     return pack_int4(idx), s
 
 
+def _kv_dequantize(packed: torch.Tensor, scale: torch.Tensor, codebook: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    return (codebook[unpack_int4(packed).long()] * scale).to(dtype)
+
+
+def _cache_write(cache: dict, k, v, positions: torch.Tensor) -> dict:
+    """Store the last ``n_w = min(S, C)`` tokens in their ring slots, in
+    place: position ``p`` lives in slot ``p % C``. One ``index_copy_`` of a
+    fixed shape per tensor, at ``(start + arange(n_w)) % C`` with ``start``
+    a device tensor, so a decode step reads nothing on the host. This is
+    JAX's ``dynamic_update_slice`` (and its ``roll`` when ``n_w == C``) under
+    the same contract: ``positions`` (S,) contiguous ascending, multi-token
+    writes ring-aligned (prefill from position 0)."""
+    c = cache["slot_pos"].shape[0]
+    n_w = min(k.shape[1], c)
+    pos_w = positions[-n_w:]
+    slots = (pos_w[0] % c + torch.arange(n_w, device=pos_w.device)) % c
+    if "k_idx" in cache:
+        ki, ks = _kv_quantize(k[:, -n_w:], cache["kv_codebook"])
+        vi, vs = _kv_quantize(v[:, -n_w:], cache["kv_codebook"])
+        writes = (("k_idx", ki), ("v_idx", vi), ("k_scale", ks), ("v_scale", vs))
+    else:
+        writes = (("k", k[:, -n_w:]), ("v", v[:, -n_w:]))
+    for key, vals in writes:
+        cache[key].index_copy_(1, slots, vals.to(cache[key].dtype))
+    cache["slot_pos"].index_copy_(0, slots, pos_w.to(torch.int32))
+    return cache
+
+
+def _cache_read(cache: dict, dtype):
+    """The whole ring as (k, v) in ``dtype`` (int4 dequantized)."""
+    if "k_idx" in cache:
+        book = cache["kv_codebook"]
+        return (_kv_dequantize(cache["k_idx"], cache["k_scale"], book, dtype),
+                _kv_dequantize(cache["v_idx"], cache["v_scale"], book, dtype))
+    return cache["k"], cache["v"]
+
+
 def _paged_write(cache: dict, k, v, positions, ctx_lens) -> dict:
     """Store this call's tokens in their pool slots, in place.
 
@@ -224,10 +375,12 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
                     cache: dict | None = None, window: int = 0):
     """GQA attention. Returns (out, cache).
 
-    ``positions``: (S,) shared (no cache) or (B, S) per row (paged serving,
-    -1 = padded cell). A paged cache may carry ``token_slots`` (B,): the
-    packed layout, where the tables are per scheduler slot and each row is a
-    segment of slot ``token_slots[b]``.
+    ``positions``: (S,) shared (no cache, ring cache) or (B, S) per row
+    (paged serving, -1 = padded cell). A paged cache may carry
+    ``token_slots`` (B,): the packed layout, where the tables are per
+    scheduler slot and each row is a segment of slot ``token_slots[b]``. A
+    ring cache may carry ``pad_len`` (B,): keys at positions below it are
+    masked.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -247,10 +400,13 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
         q_pos = positions if positions.ndim == 2 else positions.expand(b, s)
         cache = _paged_write(cache, k, v, q_pos, cache["ctx_lens"])
         o = _paged_attend(cache, q, q_pos, softcap, window)
-    elif cache is None:
-        o = _sdpa_dense(q, k, v, positions, positions, window, softcap)
+    elif cache is not None:
+        cache = _cache_write(cache, k, v, positions)
+        ck, cv = _cache_read(cache, x.dtype)
+        o = _attn_dispatch(q, ck, cv, positions, cache["slot_pos"], window, True, softcap,
+                           cfg, k_min=cache.get("pad_len"))
     else:
-        raise NotImplementedError("the ring-buffer KV cache is not ported yet")
+        o = _attn_dispatch(q, k, v, positions, positions, window, True, softcap, cfg)
     out = dense_apply(p.wo, o.reshape(b, s, h * hd))
     return out, cache
 

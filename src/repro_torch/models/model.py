@@ -51,9 +51,9 @@ class Model:
         return transformer.init(self.cfg, seed, resolve_device(device))
 
     def init_caches(self, batch: int, cache_len: int, dtype=torch.bfloat16,
-                    quantized: bool = False, block_size: int = 16, n_blocks: int = 0,
-                    device=None) -> list[dict]:
-        return transformer.init_caches(self.cfg, batch, cache_len, dtype, quantized,
+                    quantized: bool = False, layout: str = "ring", block_size: int = 16,
+                    n_blocks: int = 0, device=None) -> list[dict]:
+        return transformer.init_caches(self.cfg, batch, cache_len, dtype, quantized, layout,
                                        block_size, n_blocks, resolve_device(device))
 
     def cache_policies(self):

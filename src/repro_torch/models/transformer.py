@@ -1,8 +1,8 @@
 """Dense decoder-only transformer LM (port of ``repro/models/transformer.py``).
 
 ``TransformerLM`` holds its layers in an ``nn.ModuleList`` where the JAX
-package scans over stacked parameters. The paged serving caches are a list
-of per-layer pool dicts.
+package scans over stacked parameters. The serving caches (ring buffers or
+paged pools) are a list of per-layer dicts.
 """
 
 from __future__ import annotations
@@ -112,14 +112,28 @@ def apply(params: TransformerLM, cfg: ModelConfig, tokens, *, positions=None, ca
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
-                quantized: bool = False, block_size: int = 16, n_blocks: int = 0,
-                device="cpu") -> list[dict]:
-    """Per-layer slices of the global paged pool (``batch * ceil(cache_len /
-    block_size)`` blocks when ``n_blocks`` is 0): float pages in ``dtype``, or
-    int4 K-Means pages with ``quantized``. The ring layout waits."""
-    if n_blocks <= 0:
-        n_blocks = batch * -(-cache_len // block_size)
-    return [L.init_paged_kv_cache(cfg, n_blocks, block_size, dtype, quantized, device)
+                quantized: bool = False, layout: str = "ring", block_size: int = 16,
+                n_blocks: int = 0, device="cpu") -> list[dict]:
+    """Per-layer KV caches, float in ``dtype`` or int4 K-Means with
+    ``quantized``.
+
+    ``layout="ring"`` (the default, as in JAX): a ring buffer of
+    ``cache_len`` slots per request row (``layers.init_kv_cache``); a
+    sliding-window config clamps ``cache_len`` to its window.
+    ``layout="paged"``: per-layer slices of the global block pool
+    (``layers.init_paged_kv_cache``), ``batch * ceil(cache_len /
+    block_size)`` blocks when ``n_blocks`` is 0; the scheduler attaches the
+    tables per call."""
+    if layout == "paged":
+        if n_blocks <= 0:
+            n_blocks = batch * -(-cache_len // block_size)
+        return [L.init_paged_kv_cache(cfg, n_blocks, block_size, dtype, quantized, device)
+                for _ in range(cfg.n_layers)]
+    if layout != "ring":
+        raise ValueError(f"unknown cache layout {layout!r} (ring or paged)")
+    if cfg.sliding_window:
+        cache_len = min(cache_len, cfg.sliding_window)
+    return [L.init_kv_cache(cfg, batch, cache_len, dtype, quantized, device)
             for _ in range(cfg.n_layers)]
 
 

@@ -1,23 +1,46 @@
-"""Serving engine on the paged continuous-batching path
-(port of ``repro/serving/engine.py``).
+"""Serving engine (port of ``repro/serving/engine.py``).
 
 ``ServingEngine(model, params, sc)`` serves on the device that holds
-``params``; the scheduler owns the block pool -- float pages in
-``cache_dtype``, or int4 K-Means pages with ``kv_quant`` -- and runs one
-packed step per iteration, on the card as one captured CUDA graph
-(``graph=False`` runs it eagerly). Sampling is greedy at temperature 0,
-else seeded per request as in JAX. The fixed-slot ring-buffer fallback,
-speculation and telemetry are not ported yet.
+``params``, on one of two paths:
+
+* the paged continuous-batching scheduler (``scheduler.py``), for every
+  model with cache policies unless ``ServeConfig.paged`` is False: a block
+  pool of float pages in ``cache_dtype`` or int4 K-Means pages with
+  ``kv_quant``, one packed step per iteration, on the card one captured CUDA
+  graph. ``ServeConfig.speculative`` adds greedy speculative decoding with a
+  draft model (``draft=`` or ``speculative.draft_artifact``);
+* the fixed-slot ring-buffer engine (``paged=False``): slot-sized batches of
+  left-padded prompts, one eager prefill per batch (its shape changes with
+  the prompt length, as JAX re-traces per shape), then one decode step per
+  token against ring caches whose per-row ``pad_len`` masks the pad keys.
+  On the card the decode step is one captured CUDA graph per batch size,
+  JAX's ``jax.jit(make_serve_step(...))``: the ring caches are allocated
+  once per engine at ``batch_slots`` rows and reset in place per batch, and
+  the token and position live in static device buffers.
+
+``graph`` (not a ``ServeConfig`` field: it changes how the steps run, not
+what they compute): None runs them as CUDA graphs on the card and eagerly
+on the CPU, False eagerly everywhere, True as graphs or raises. Sampling is
+greedy at temperature 0; otherwise the scheduler seeds each request, and
+the fixed-slot engine samples batch-wide, as the JAX fallback does. A
+capture that fails raises; nothing falls back. Telemetry is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
+
+import torch
 
 from repro_torch.core.quantspec import QuantSpec
+from repro_torch.serving.graph_step import GraphStep
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.speculative import SpeculativeConfig, load_draft
 
-__all__ = ["ServeConfig", "ServingEngine"]
+__all__ = ["ServeConfig", "make_prefill_step", "make_serve_step", "ServingEngine"]
+
+_FALLBACK_COUNTERS = ("prefills", "steps", "tokens", "prompt_tokens", "pad_tokens")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,12 +49,15 @@ class ServeConfig:
     cache_dtype: str = "bfloat16"
     kv_quant: bool = False
     temperature: float = 0.0  # 0 => greedy
+    paged: bool = True  # False forces the fixed-slot ring-buffer engine
     block_size: int = 16
     n_blocks: int = 0  # 0 -> slots * ceil(cache_len / block_size)
     prefill_chunk: int = 32
     token_budget: int = 0  # 0 -> slots + prefill_chunk
     prefix_cache: bool = True
     seg_width: int = 1
+    # greedy speculative decoding with a draft model; None = off
+    speculative: SpeculativeConfig | None = None
 
     @classmethod
     def from_spec(cls, spec: QuantSpec, **kw) -> "ServeConfig":
@@ -41,34 +67,216 @@ class ServeConfig:
         return cls(**kw)
 
 
+def make_prefill_step(model, sc: ServeConfig) -> Callable:
+    """prefill(params, caches, batch) -> (first token (B,) int32, caches,
+    last-position logits (B, vocab_padded))."""
+
+    @torch.inference_mode()
+    def prefill(params, caches, batch: dict):
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        out = model.apply(params, batch, positions=positions, caches=caches, last_only=True)
+        next_tok = out.logits[:, -1, : model.cfg.vocab_size].argmax(dim=-1).int()
+        return next_tok, out.caches, out.logits[:, -1]
+
+    return prefill
+
+
+def make_serve_step(model, sc: ServeConfig) -> Callable:
+    """serve_step(params, caches, tokens (B, 1), pos ()) -> (next (B,) int32,
+    caches, logits (B, vocab)): one token in against ring caches, written in
+    place; ``logits`` are this step's, so sampling draws from the current
+    distribution. ``pos`` is a device tensor: the step reads nothing on the
+    host, so it can be captured as a CUDA graph."""
+
+    @torch.inference_mode()
+    def serve_step(params, caches, tokens, pos):
+        out = model.apply(params, {"tokens": tokens}, positions=pos.reshape(1),
+                          caches=caches)
+        logits = out.logits[:, -1, : model.cfg.vocab_size]
+        return logits.argmax(dim=-1).int(), out.caches, logits
+
+    return serve_step
+
+
+def _attach_pad_lens(caches: list[dict], pad_lens: torch.Tensor) -> list[dict]:
+    """Every ring cache dict (recognised by ``slot_pos``) with the per-row
+    ``pad_len`` (B,) that masks a left-padded prompt's pad keys."""
+    return [c | {"pad_len": pad_lens} if "slot_pos" in c else c for c in caches]
+
+
 class ServingEngine:
-    """Batched generation over ``batch_slots`` request slots.
+    """Batched generation over ``batch_slots`` request slots (see the module
+    docstring for the two paths and ``graph``)."""
 
-    ``graph`` (not a ``ServeConfig`` field: it changes how the step runs, not
-    what it computes): None runs the packed step as a CUDA graph on the card
-    and eagerly on the CPU, False eagerly everywhere, True as a graph or
-    raises (see :class:`Scheduler`)."""
-
-    def __init__(self, model, params, sc: ServeConfig, batch_slots: int = 8,
+    def __init__(self, model, params, sc: ServeConfig, batch_slots: int = 8, draft=None,
                  graph: bool | None = None):
+        """``draft`` (speculative configs): ``(model, params)``, ``(model,
+        params, spec)`` or a ``load_quantized`` artifact; when omitted,
+        ``sc.speculative.draft_artifact`` is loaded onto the params' device."""
         self.model, self.params, self.sc, self.slots = model, params, sc, batch_slots
-        self.scheduler = Scheduler(model, params, sc, slots=batch_slots, graph=graph)
+        self.device = next(params.parameters()).device
+        self.paged = sc.paged and model.cache_policies() is not None
+        if self.paged:
+            if sc.speculative is not None and draft is None:
+                if sc.speculative.draft_artifact is None:
+                    raise ValueError("ServeConfig.speculative needs a draft model: set "
+                                     "speculative.draft_artifact or pass draft=(model, "
+                                     "params[, spec]) to the engine")
+                draft = load_draft(sc.speculative.draft_artifact, device=self.device)
+            self.scheduler = Scheduler(model, params, sc, slots=batch_slots, draft=draft,
+                                       graph=graph)
+            return
+        if sc.speculative is not None:
+            raise ValueError("speculative decoding needs the paged scheduler (paged=True "
+                             "and a paged-capable model family)")
+        if graph is None:
+            graph = self.device.type == "cuda"
+        elif graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph step needs the card; params are on {self.device}")
+        self.scheduler = None
+        self._graph_on = graph
+        self._prefill = make_prefill_step(model, sc)
+        self._step = make_serve_step(model, sc)
+        self._fc = dict.fromkeys(_FALLBACK_COUNTERS, 0)
+        self._ring: list[dict] | None = None  # batch_slots rows, made on first use
+        self._pad_len = torch.zeros((batch_slots,), dtype=torch.int32, device=self.device)
+        # per batch size: (token buffer (b, 1), position buffer (), graph or None)
+        self._decode: dict[int, tuple[torch.Tensor, torch.Tensor, GraphStep | None]] = {}
 
     @property
     def stats(self) -> dict:
-        return dict(self.scheduler.stats,
-                    prefix_evictions=self.scheduler.allocator.evictions,
-                    prefix_blocks_cached=self.scheduler.allocator.n_cached)
+        """The scheduler's counters (paged path; under speculation also the
+        draft's dispatches and the acceptance rate, accepted / drafted), or
+        the fixed-slot engine's batch counters: prefills, decode steps,
+        tokens served, prompt and pad cells and their ratio, and the seconds
+        its decode graphs took to capture."""
+        if self.scheduler is None:
+            d = dict(self._fc)
+            d["pad_fraction"] = d["pad_tokens"] / max(1, d["prompt_tokens"])
+            caps = [g.capture_s for _, _, g in self._decode.values()
+                    if g is not None and g.capture_s is not None]
+            d["graph_capture_s"] = sum(caps) if caps else None
+            return d
+        d = dict(self.scheduler.stats,
+                 prefix_evictions=self.scheduler.allocator.evictions,
+                 prefix_blocks_cached=self.scheduler.allocator.n_cached)
+        if self.scheduler.draft is not None:
+            d["draft_steps"] = self.scheduler.draft.steps
+            d["acceptance_rate"] = d["accepted_tokens"] / max(1, d["drafted_tokens"])
+        return d
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int | list[int] = 32,
                  eos_id: int | None = None, seed: int = 0) -> list[list[int]]:
         """Per-prompt lists of exactly ``max_new_tokens`` tokens (eos-padded).
-        With a temperature, prompt i samples from ``seed`` and salt i."""
+        Per-request budgets need the paged scheduler. With a temperature, the
+        scheduler samples prompt i from ``seed`` and salt i; the fixed-slot
+        engine samples each batch from ``seed``."""
         budgets = (max_new_tokens if isinstance(max_new_tokens, list)
                    else [max_new_tokens] * len(prompts))
         if len(budgets) != len(prompts):
             raise ValueError("per-request max_new_tokens must match prompts")
-        rids = [self.scheduler.submit(p, n, eos_id, seed, salt=i)
-                for i, (p, n) in enumerate(zip(prompts, budgets))]
-        results = self.scheduler.run()
-        return [results[r] for r in rids]
+        if self.paged:
+            rids = [self.scheduler.submit(p, n, eos_id, seed, salt=i)
+                    for i, (p, n) in enumerate(zip(prompts, budgets))]
+            results = self.scheduler.run()
+            return [results[r] for r in rids]
+        if isinstance(max_new_tokens, list):
+            raise ValueError("per-request budgets need the paged scheduler")
+        out: list[list[int]] = []
+        for i in range(0, len(prompts), self.slots):  # iterative, not recursive
+            out += self._generate_batch(prompts[i : i + self.slots], max_new_tokens, eos_id,
+                                        seed)
+        return out
+
+    # ------------------------------------------------------ fixed-slot engine
+    def _ring_caches(self, pads: list[int]) -> list[dict]:
+        """The engine's ring caches for a batch of ``len(pads)`` rows: views
+        of the first rows, every slot emptied and ``pad_len`` set, in place
+        (a captured decode step holds their addresses). Slots a batch left
+        behind are masked by ``slot_pos`` until overwritten."""
+        sc, b = self.sc, len(pads)
+        if self._ring is None:
+            self._ring = self.model.init_caches(self.slots, sc.cache_len, sc.cache_dtype,
+                                                quantized=sc.kv_quant, layout="ring",
+                                                device=self.device)
+        for layer in self._ring:
+            layer["slot_pos"].fill_(-1)
+        self._pad_len[:b].copy_(torch.tensor(pads, dtype=torch.int32))
+        rows = [{k: v if k in ("slot_pos", "kv_codebook") else v[:b] for k, v in layer.items()}
+                for layer in self._ring]
+        return _attach_pad_lens(rows, self._pad_len[:b])
+
+    def _graph_fn(self, params, caches, tokens, pos):
+        nxt, caches, logits = self._step(params, caches, tokens, pos)
+        return caches, (nxt, logits)
+
+    def _decode_step(self, caches: list[dict], tok: torch.Tensor, pos: int):
+        """One decode step of the batch: the token and position go into the
+        batch size's static buffers, then the graph replays (captured on the
+        first call, warmed up on these same inputs, whose writes the first
+        replay repeats) or the step runs eagerly. Returns (next, logits);
+        a graph's are its static outputs, valid until the next replay."""
+        b = tok.shape[0]
+        if b not in self._decode:
+            bufs = (torch.empty((b, 1), dtype=torch.int32, device=self.device),
+                    torch.empty((), dtype=torch.int32, device=self.device))
+            self._decode[b] = (*bufs, None)
+        tok_buf, pos_buf, graph = self._decode[b]
+        tok_buf.copy_(tok[:, None])
+        pos_buf.fill_(pos)
+        if not self._graph_on:
+            nxt, _, logits = self._step(self.params, caches, tok_buf, pos_buf)
+            return nxt, logits
+        if graph is None:
+            graph = GraphStep(self._graph_fn, self.params, caches, (tok_buf, pos_buf),
+                              (tok_buf.clone(), pos_buf.clone()))
+            self._decode[b] = (tok_buf, pos_buf, graph)
+        return graph(caches)
+
+    def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        """``argmax(logits / T + g)``, g standard Gumbel noise (B, vocab) from
+        the batch's generator, drawn as ``jax.random.gumbel`` draws it: the
+        JAX fallback's ``categorical`` rule, batch-wide (not its noise)."""
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
+        u.uniform_(tiny, 1.0, generator=gen)
+        return (logits / self.sc.temperature - torch.log(-torch.log(u))).argmax(dim=-1).int()
+
+    def _generate_batch(self, prompts: list[list[int]], max_new_tokens: int,
+                        eos_id: int | None, seed: int) -> list[list[int]]:
+        """Left-pad the batch so every prompt ends at the same position,
+        prefill it, then decode one token per step. With a temperature every
+        token of the batch is drawn from one generator seeded ``seed`` (one
+        per batch, as JAX keys each batch with ``PRNGKey(seed)``)."""
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        pads = [plen - len(p) for p in prompts]
+        toks = torch.tensor([[0] * n + list(p) for n, p in zip(pads, prompts)],
+                            dtype=torch.int32).to(self.device)
+        caches = self._ring_caches(pads)
+        self._fc["prefills"] += 1
+        self._fc["prompt_tokens"] += b * plen
+        self._fc["pad_tokens"] += sum(pads)
+        tok, caches, logits = self._prefill(self.params, caches, {"tokens": toks})
+        vocab = self.model.cfg.vocab_size
+        gen = None
+        if self.sc.temperature > 0:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            tok = self._sample(logits[:, :vocab], gen)
+        done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        outs = [tok]
+        for pos in range(plen, plen + max_new_tokens - 1):
+            tok, logits = self._decode_step(caches, tok, pos)
+            self._fc["steps"] += 1
+            tok = self._sample(logits, gen) if gen is not None else tok.clone()
+            if eos_id is not None:
+                done = done | (tok == eos_id)
+                tok = torch.where(done, eos_id, tok)
+            outs.append(tok)
+            if eos_id is not None and bool(done.all()):
+                break
+        self._fc["tokens"] += b * len(outs)
+        rows = torch.stack(outs, dim=1).tolist()
+        pad = eos_id if eos_id is not None else 0
+        return [row + [pad] * (max_new_tokens - len(row)) for row in rows]

@@ -1,21 +1,26 @@
-"""The packed step as one captured CUDA graph: the port's counterpart of
-``jax.jit(make_packed_fn(model))`` in ``repro/serving/scheduler.py``.
+"""Serving steps as captured CUDA graphs: the port's counterpart of
+``jax.jit`` of a step in ``repro/serving/``.
 
-JAX compiles the packed step once per shape and runs it as one program.
+JAX compiles a serving step once per shape and runs it as one program.
 Run eagerly, the port's step is hundreds of small PyTorch ops and kernel
-launches per layer, each issued from Python. A scheduler's step has one
-shape (``rows x seg_width``), so :class:`GraphStep` captures it once, on
-its first call, and replays it after: the five step inputs live in static
-device buffers that the caller fills before each call, the pools are
-written in place, and the logits come back in one static buffer that the
-next replay overwrites.
+launches per layer, each issued from Python. A step of fixed shape -- the
+scheduler's packed step (``rows x seg_width``), the draft model's catch-up
+step and its ``k + 1``-forward loop, the fixed-slot engine's ring decode
+step -- is captured once by :class:`GraphStep`, on its first call, and
+replayed after: its inputs live in static device buffers that the caller
+fills before each call (:class:`StepInputs` for the ones the host packs),
+the caches are written in place, and the outputs come back in static
+buffers that the next replay overwrites.
 
 Capture, in order:
 
-1. a warm-up run of the step on the capture stream, over inputs with no
-   valid cell (no table entry, every position -1), so its only pool writes
-   go to the scratch blocks. It builds and binds the kernels, sets their
-   shared-memory attributes and makes the stream's split-kernel tickets
+1. a warm-up run of the step on the capture stream, over the ``idle``
+   inputs the caller passes. They must leave the caches as the first replay
+   finds them: inputs with no valid cell (no table entry, every position -1)
+   send a paged step's writes to the scratch blocks; a ring step is warmed
+   up on its first inputs, whose writes the first replay repeats bit for
+   bit. The warm-up builds and binds the kernels, sets their shared-memory
+   attributes and makes the stream's split-kernel tickets
    (``kernels/build.py::tickets``) outside the graph's memory pool;
 2. the capture itself, which runs the Python but no kernel;
 3. the first replay, which does the first step's work.
@@ -38,7 +43,7 @@ import torch
 from repro_torch.core import kernel_routing as kr
 from repro_torch.kernels import build
 
-__all__ = ["GraphStep", "StepCounts", "pool_ptrs"]
+__all__ = ["GraphStep", "StepCounts", "StepInputs", "packed_idle", "pool_ptrs"]
 
 
 def pool_ptrs(pools: list[dict]) -> list[tuple[str, int]]:
@@ -75,28 +80,62 @@ class StepCounts:
             c.update(d)
 
 
+class StepInputs:
+    """A step's int32 inputs: host arrays that the caller fills (pinned on
+    the card) and the device tensors the step reads, the same tensors every
+    step (on the CPU the two are one)."""
+
+    def __init__(self, shapes, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = [torch.empty(s, dtype=torch.int32, pin_memory=cuda) for s in shapes]
+        self.dev = (tuple(torch.empty(s, dtype=torch.int32, device=device) for s in shapes)
+                    if cuda else tuple(self.host))
+        # recorded after each upload: the next packing must not overwrite the
+        # pinned arrays while a copy from them is queued
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def arrays(self) -> list:
+        """The host arrays as numpy views, once the last upload has read them."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        return [h.numpy() for h in self.host]
+
+    def upload(self) -> tuple[torch.Tensor, ...]:
+        """Queue the copies to the device tensors; returns them."""
+        if self._copied is not None:
+            for d, h in zip(self.dev, self.host):
+                d.copy_(h, non_blocking=True)
+            self._copied.record()
+        return self.dev
+
+
 class GraphStep:
-    """``fn(params, pools, *inputs) -> (pools, logits)`` captured as one CUDA
+    """``fn(params, pools, *inputs) -> (pools, out)`` captured as one CUDA
     graph over the static device tensors ``inputs``; calling it replays the
-    graph and returns the static logits.
+    graph and returns ``out``, static tensors that the next replay
+    overwrites. ``idle`` holds the warm-up's inputs (see the module
+    docstring), shaped as ``inputs``.
 
     ``pools`` must stay the same tensors for the graph's life: they are
     written in place (copy-on-write and preemption too), and each call
     checks their addresses."""
 
-    def __init__(self, fn, params, pools: list[dict], inputs: tuple[torch.Tensor, ...]):
+    def __init__(self, fn, params, pools: list[dict], inputs: tuple[torch.Tensor, ...],
+                 idle: tuple[torch.Tensor, ...]):
         self.device = inputs[0].device
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, got {self.device}")
-        self.fn, self.params, self.inputs = fn, params, inputs
+        if [t.shape for t in idle] != [t.shape for t in inputs]:
+            raise ValueError("the warm-up inputs must have the step inputs' shapes")
+        self.fn, self.params, self.inputs, self.idle = fn, params, inputs, idle
         self.ptrs = pool_ptrs(pools)
         self.stream = torch.cuda.Stream(self.device)
         self.graph: torch.cuda.CUDAGraph | None = None
-        self.logits: torch.Tensor | None = None
+        self.out = None
         self.counts = StepCounts()
         self.capture_s: float | None = None
 
-    def __call__(self, pools: list[dict]) -> torch.Tensor:
+    def __call__(self, pools: list[dict]):
         if pool_ptrs(pools) != self.ptrs:
             raise RuntimeError("the pools a captured step writes were replaced; a graph "
                                "holds their addresses, so they must be written in place")
@@ -104,21 +143,27 @@ class GraphStep:
             self._capture(pools)
         self.graph.replay()
         self.counts.add()
-        return self.logits
+        return self.out
 
     def _capture(self, pools: list[dict]) -> None:
         t0 = time.perf_counter()
-        bt, slot_ids, pos, ctx, tok = self.inputs
-        idle = (torch.full_like(bt, -1), torch.zeros_like(slot_ids), torch.full_like(pos, -1),
-                torch.zeros_like(ctx), torch.zeros_like(tok))
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with StepCounts().record(), torch.cuda.stream(self.stream):
-            self.fn(self.params, pools, *idle)
+            self.fn(self.params, pools, *self.idle)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         graph = torch.cuda.CUDAGraph()
         with self.counts.record(), torch.cuda.graph(graph, stream=self.stream):
-            out_pools, self.logits = self.fn(self.params, pools, *self.inputs)
+            out_pools, self.out = self.fn(self.params, pools, *self.inputs)
         if pool_ptrs(out_pools) != self.ptrs:
             raise RuntimeError("the captured step returned other pool tensors than it was given")
         self.graph = graph
+        self.idle = None
         self.capture_s = time.perf_counter() - t0
+
+
+def packed_idle(inputs: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """Warm-up inputs of a packed step ``(bt, slot_ids, pos, ctx, tok)`` with
+    no valid cell: its pool writes all go to the scratch blocks."""
+    bt, slot_ids, pos, ctx, tok = inputs
+    return (torch.full_like(bt, -1), torch.zeros_like(slot_ids), torch.full_like(pos, -1),
+            torch.zeros_like(ctx), torch.zeros_like(tok))

@@ -29,8 +29,17 @@ request draws Gumbel noise from its own generator, seeded from
 ``(seed, salt or rid)``, so its tokens do not depend on how steps were
 packed.
 
-Not ported yet: speculative decoding, sliding-window and recurrent cache
-policies, telemetry and quality probes.
+Speculative decoding (``ServeConfig.speculative``, greedy only): after the
+step's plan is stable, a :class:`~repro_torch.serving.speculative.DraftRunner`
+drafts ``k`` tokens per decoding request; each decoder's verify segment
+``[next_token, d_1 .. d_k]`` takes ``ceil((k + 1) / seg_width)`` rows of the
+same packed step (verify segments first, then prefill), every verify argmax
+comes to the host in one copy, ``greedy_verify`` commits 1 to ``k + 1``
+tokens, blocks that hold only rejected drafts are freed
+(``BlockAllocator.truncate``) and the draft rewinds.
+
+Not ported yet: sliding-window and recurrent cache policies, telemetry and
+quality probes.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from collections import deque
 import torch
 
 from repro_torch.core import kernel_routing as kr
-from repro_torch.serving.graph_step import GraphStep
+from repro_torch.serving.graph_step import GraphStep, StepInputs, packed_idle
 from repro_torch.serving.paged_cache import (
     BlockAllocator,
     PagedCacheConfig,
@@ -51,13 +60,15 @@ from repro_torch.serving.paged_cache import (
     copy_blocks,
     prefix_seed,
 )
-from repro_torch.serving.speculative import make_packed_fn
+from repro_torch.serving.speculative import (DraftRunner, greedy_verify, make_packed_fn,
+                                              rejection_sample)
 
 __all__ = ["RequestState", "Request", "Scheduler"]
 
 _COUNTERS = ("packed_steps", "decode_steps", "prefill_chunks", "mixed_steps",
              "decode_slot_tokens", "prefill_tokens", "packed_tokens", "prefix_hits",
-             "prefix_hit_tokens", "prefill_skipped", "cow_copies", "preemptions")
+             "prefix_hit_tokens", "prefill_skipped", "cow_copies", "preemptions",
+             "spec_rounds", "drafted_tokens", "accepted_tokens", "rolled_back_tokens")
 
 
 class RequestState(enum.Enum):
@@ -109,25 +120,58 @@ class Scheduler:
     (0 -> slots + prefill_chunk), ``seg_width`` packs that many tokens per
     segment row, ``prefix_cache`` turns on prefix sharing.
 
-    ``graph``: None captures the packed step as a CUDA graph on CUDA and runs
-    it eagerly on the CPU; False runs it eagerly; True demands the graph
-    (and raises on the CPU).
+    ``graph``: None captures the packed step (and a draft's steps) as CUDA
+    graphs on CUDA and runs them eagerly on the CPU; False runs them eagerly;
+    True demands the graphs (and raises on the CPU).
+
+    ``draft`` (speculative configs): ``(model, params)`` or ``(model,
+    params, spec)``, e.g. a ``load_quantized`` artifact; the spec's KV policy
+    sizes the draft pool.
     """
 
-    def __init__(self, model, params, sc, slots: int = 8, graph: bool | None = None):
+    def __init__(self, model, params, sc, slots: int = 8, draft=None,
+                 graph: bool | None = None):
         policies = model.cache_policies()
         if not all(p.kind == "paged_kv" for p in policies):
             raise NotImplementedError("only paged_kv cache policies are ported")
         self.model, self.params, self.sc, self.slots = model, params, sc, slots
         self.device = next(params.parameters()).device
+        if graph is None:
+            graph = self.device.type == "cuda"
+        elif graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph step needs the card; params are on {self.device}")
+        self.spec = sc.speculative
+        self.draft: DraftRunner | None = None
+        if self.spec is not None:
+            if sc.temperature > 0:
+                rejection_sample()  # greedy only: raises NotImplementedError
+            if draft is None:
+                raise ValueError("speculative serving needs a draft model: pass "
+                                 "draft=(model, params[, spec]) or set "
+                                 "speculative.draft_artifact on the engine")
+            dm, dp, dspec = (tuple(draft) + (None,))[:3]
+            if dm.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(f"draft vocab {dm.cfg.vocab_size} != target vocab "
+                                 f"{model.cfg.vocab_size}: verification compares argmaxes")
+            self.draft = DraftRunner(
+                dm, dp, slots=slots, cache_len=sc.cache_len, k=self.spec.k,
+                block_size=sc.block_size,
+                cache_dtype=dspec.kv_dtype if dspec else sc.cache_dtype,
+                kv_quant=(dspec.kv_bits is not None) if dspec else sc.kv_quant,
+                token_budget=self.spec.draft_token_budget, graph=graph)
+        # grid: rows x seg_width cells; every slot's decode or verify segment
+        # (k + 1 cells under speculation) must fit at once
         self.seg_width = max(1, sc.seg_width)
+        seg_len = self.spec.k + 1 if self.spec else 1
+        self._dec_rows = -(-seg_len // self.seg_width)
         base = sc.token_budget or (slots + sc.prefill_chunk)
         rows = -(-base // self.seg_width)
         if sc.token_budget == 0:
-            rows = max(rows, slots)
-        if rows < slots:
+            rows = max(rows, slots * self._dec_rows)
+        if rows < slots * self._dec_rows:
             raise ValueError(f"token_budget {base} gives {rows} segment rows of width "
-                             f"{self.seg_width} but decode reservation needs {slots}")
+                             f"{self.seg_width} but decode reservation needs "
+                             f"{slots * self._dec_rows} (slots x ceil((k+1)/seg_width))")
         self.rows = rows
         self.token_budget = rows * self.seg_width
         max_blk = blocks_needed(sc.cache_len, sc.block_size)
@@ -135,8 +179,9 @@ class Scheduler:
         self.pcfg = PagedCacheConfig(block_size=sc.block_size, n_blocks=n_blocks,
                                      max_blocks_per_seq=max_blk)
         self.pools = model.init_caches(slots, sc.cache_len, sc.cache_dtype,
-                                       quantized=sc.kv_quant, block_size=sc.block_size,
-                                       n_blocks=n_blocks, device=self.device)
+                                       quantized=sc.kv_quant, layout="paged",
+                                       block_size=sc.block_size, n_blocks=n_blocks,
+                                       device=self.device)
         self.allocator = BlockAllocator(n_blocks, prefix_cache=sc.prefix_cache)
         self._hash_seed = prefix_seed(
             family=model.cfg.family, n_layers=model.cfg.n_layers,
@@ -150,23 +195,10 @@ class Scheduler:
         self.counters = dict.fromkeys(_COUNTERS, 0)
         self.peak_occupancy = 0.0
         self._packed_fn = make_packed_fn(model)
-        if graph is None:
-            graph = self.device.type == "cuda"
-        elif graph and self.device.type != "cuda":
-            raise ValueError(f"a CUDA graph step needs the card; params are on {self.device}")
-        # the step's inputs: host arrays the packing fills (pinned on the card)
-        # and the device tensors the step reads, the same tensors every step
-        shapes = ((slots, max_blk), (rows,), (rows, self.seg_width), (rows,),
-                  (rows, self.seg_width))
-        cuda = self.device.type == "cuda"
-        self._host = [torch.empty(s, dtype=torch.int32, pin_memory=cuda) for s in shapes]
-        self._inputs = (tuple(torch.empty(s, dtype=torch.int32, device=self.device)
-                              for s in shapes) if cuda else tuple(self._host))
-        # recorded after each step's copies: the next packing must not
-        # overwrite the pinned arrays while a copy from them is queued
-        self._copied = torch.cuda.Event() if cuda else None
-        self.graph = (GraphStep(self._packed_fn, params, self.pools, self._inputs)
-                      if graph else None)
+        self._in = StepInputs(((slots, max_blk), (rows,), (rows, self.seg_width), (rows,),
+                               (rows, self.seg_width)), self.device)
+        self.graph = (GraphStep(self._packed_fn, params, self.pools, self._in.dev,
+                                packed_idle(self._in.dev)) if graph else None)
         self.last_logits: torch.Tensor | None = None  # (rows, S, vocab) of the last step
 
     @property
@@ -179,6 +211,8 @@ class Scheduler:
         d["outlier_kernel_calls"] = kr.detect_kernel_calls()
         d["outlier_jnp_calls"] = kr.detect_jnp_calls()
         d["graph_capture_s"] = None if self.graph is None else self.graph.capture_s
+        if self.draft is not None:
+            d["draft_capture_s"] = self.draft.capture_s
         return d
 
     def _count(self, key: str, n: int = 1) -> None:
@@ -253,6 +287,8 @@ class Scheduler:
             r.blocks, r.block_hashes = shared + fresh, hashes
             r.slot, r.state = self._slot_free.pop(), RequestState.RUNNING
             r.prefilled = min(len(shared) * bs, len(r.context) - 1)
+            if self.draft is not None:
+                self.draft.reset(r.slot)
             if shared:
                 self._count("prefix_hits")
                 self._count("prefix_hit_tokens", len(shared) * bs)
@@ -280,19 +316,27 @@ class Scheduler:
         return ids, hashes
 
     # ------------------------------------------------------------ packed step
+    def _k_for(self, r: Request) -> int:
+        """Drafts to propose for ``r`` this round: ``k``, clipped so that
+        verification never commits past the request's budget (which also
+        keeps every write below ``cache_len``)."""
+        if self.spec is None:
+            return 0
+        return max(0, min(self.spec.k, r.max_new_tokens - len(r.generated) - 1))
+
     def _packed_once(self, results: dict) -> None:
-        """Assemble and run one grid: decode segments first, then prefill
-        segments FCFS over the remaining rows."""
+        """Assemble and run one grid: decode or verify segments first, then
+        prefill segments FCFS over the remaining rows."""
         S = self.seg_width
         while True:
             for r in list(self._running):
                 if r.state is RequestState.RUNNING and r.decoding:
-                    self._grow(r, 1)
+                    self._grow(r, self._k_for(r) + 1)
             if not self._running:
                 return
             decoders = [r for r in self._running if r.decoding]
             segments: list[tuple[Request, int, int]] = []
-            rows_left = self.rows - len(decoders)
+            rows_left = self.rows - len(decoders) * self._dec_rows
             for r in self._running:
                 if rows_left <= 0:
                     break
@@ -303,9 +347,14 @@ class Scheduler:
             if self._cow_pass(decoders, segments):
                 break
 
-        if self._copied is not None:
-            self._copied.synchronize()
-        bt, slot_ids, pos, ctx, tok = (h.numpy() for h in self._host)
+        # drafts after the plan is stable: no proposal is spent on a request
+        # that growth or copy-on-write preempted; the draft pool is private
+        drafts: dict[int, list[int]] = {}
+        if self.draft is not None and decoders:
+            drafts = self.draft.propose([(r.rid, r.slot, r.context, r.next_token,
+                                          self._k_for(r)) for r in decoders])
+
+        bt, slot_ids, pos, ctx, tok = self._in.arrays()
         bt.fill(-1)
         slot_ids.fill(0)
         pos.fill(-1)
@@ -326,7 +375,8 @@ class Scheduler:
             row += -(-len(seq) // S)
             return cells
 
-        first_cell = {r.rid: fill([r.next_token], len(r.context), r.slot)[0] for r in decoders}
+        verify_cells = {r.rid: fill([r.next_token] + drafts.get(r.rid, []), len(r.context),
+                                    r.slot) for r in decoders}
         last_cell: dict[int, tuple[int, int]] = {}
         n_prefill = 0
         for r, start, n in segments:
@@ -335,10 +385,15 @@ class Scheduler:
         ctx[:] = pos.max(axis=1) + 1
 
         logits = self._run_step()
-        sampled = [(r, first_cell[r.rid]) for r in decoders]
-        sampled += [(r, last_cell[r.rid]) for r, start, n in segments
-                    if start + n >= len(r.context) and r.next_token is None]
-        picks = dict(zip((r.rid for r, _ in sampled), self._sample(logits, sampled)))
+        finishing = [(r, last_cell[r.rid]) for r, start, n in segments
+                     if start + n >= len(r.context) and r.next_token is None]
+        if self.spec is not None:
+            # greedy only: one copy of every cell's argmax to the host
+            am = logits.argmax(dim=-1).cpu().numpy()
+            picks = {r.rid: int(am[cell]) for r, cell in finishing}
+        else:
+            sampled = [(r, verify_cells[r.rid][0]) for r in decoders] + finishing
+            picks = dict(zip((r.rid for r, _ in sampled), self._sample(logits, sampled)))
 
         self._count("packed_steps")
         self._count("packed_tokens", int((pos >= 0).sum()))
@@ -350,11 +405,34 @@ class Scheduler:
             self._count("mixed_steps")
 
         for r in decoders:
+            cells = verify_cells[r.rid]
             r.context.append(r.next_token)
-            r.prefilled += 1
-            r.next_token = picks[r.rid]
-            r.generated.append(r.next_token)
-            self._count("decode_slot_tokens")
+            r.prefilled += 1  # the segment's first cell wrote it
+            if self.spec is None:
+                r.next_token = picks[r.rid]
+                r.generated.append(r.next_token)
+                self._count("decode_slot_tokens")
+                continue
+            d = drafts.get(r.rid, [])
+            committed = greedy_verify([int(am[c]) for c in cells], d, r.eos_id)
+            # every committed token but the last matched its draft, whose KV
+            # this step wrote; the last is the new pending next_token
+            r.context.extend(committed[:-1])
+            r.prefilled += len(committed) - 1
+            r.next_token = committed[-1]
+            r.generated.extend(committed)
+            # the last committed token counts as accepted when it is an EOS
+            # that agreed with its draft
+            n_acc = len(committed) - 1
+            if n_acc < len(d) and committed[-1] == d[n_acc]:
+                n_acc += 1
+            self._count("spec_rounds")
+            self._count("drafted_tokens", len(d))
+            self._count("accepted_tokens", n_acc)
+            self._count("rolled_back_tokens", len(d) - n_acc)
+            self._count("decode_slot_tokens", len(committed))
+            self._rollback(r)
+            self.draft.sync(r.slot, len(r.context))
         for r, start, n in segments:
             r.prefilled = start + n
             if r.decoding and r.next_token is None:
@@ -368,14 +446,11 @@ class Scheduler:
     def _run_step(self) -> torch.Tensor:
         """Copy the packed inputs to the device and run the step (graph
         replay or eager). Returns its logits, (rows, S, vocab) float32."""
-        if self._copied is not None:
-            for d, h in zip(self._inputs, self._host):
-                d.copy_(h, non_blocking=True)
-            self._copied.record()
+        inputs = self._in.upload()
         if self.graph is not None:
             self.last_logits = self.graph(self.pools)
         else:
-            _, self.last_logits = self._packed_fn(self.params, self.pools, *self._inputs)
+            _, self.last_logits = self._packed_fn(self.params, self.pools, *inputs)
         return self.last_logits
 
     def _sample(self, logits: torch.Tensor, cells: list[tuple[Request, tuple[int, int]]]
@@ -407,7 +482,8 @@ class Scheduler:
         private copy. Returns False if making room preempted somebody (the
         caller's plan is stale and is rebuilt)."""
         bs = self.pcfg.block_size
-        writes = [(r, len(r.context) // bs, len(r.context) // bs) for r in decoders]
+        writes = [(r, len(r.context) // bs, (len(r.context) + self._k_for(r)) // bs)
+                  for r in decoders]
         writes += [(r, start // bs, (start + n - 1) // bs) for r, start, n in segments]
         copies: list[tuple[Request, int, int]] = []
         plan_live = True
@@ -428,6 +504,16 @@ class Scheduler:
         if copies:  # in place: a captured step holds the pools' addresses
             copy_blocks(self.pools, [s for _, s, _ in copies], [d for _, _, d in copies])
         return plan_live
+
+    def _rollback(self, r: Request) -> None:
+        """Free the blocks a verify segment grew that hold only rejected
+        drafts: all past ``blocks_needed(len(context) + 1)`` (the context
+        and the pending next_token). Rejected writes inside a kept block sit
+        above the horizon and are overwritten before anything reads them;
+        the freed tail blocks were never registered or shared."""
+        keep = blocks_needed(len(r.context) + 1, self.pcfg.block_size)
+        if len(r.blocks) > keep:
+            r.blocks = self.allocator.truncate(r.blocks, keep)
 
     def _grow(self, r: Request, n_tokens: int = 1) -> None:
         while blocks_needed(len(r.context) + n_tokens, self.pcfg.block_size) > len(r.blocks):

@@ -614,17 +614,17 @@ def test_graph_capture_syncs_nothing(dev):
     """The warm-up and the capture of a packed step pass under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on any op that
     waits for the card."""
-    from repro_torch.serving.graph_step import GraphStep
+    from repro_torch.serving.graph_step import GraphStep, packed_idle
     from repro_torch.serving.speculative import make_packed_fn
 
     model, qp, sc = _route_model(dev, "fused")
-    pools = model.init_caches(2, 64, sc.cache_dtype, quantized=sc.kv_quant, block_size=8,
-                              device=dev)
+    pools = model.init_caches(2, 64, sc.cache_dtype, quantized=sc.kv_quant, layout="paged",
+                              block_size=8, device=dev)
     pos = torch.arange(10, dtype=torch.int32, device=dev).reshape(10, 1)
     inputs = (torch.tensor([[0, 1, -1, -1], [2, -1, -1, -1]], dtype=torch.int32, device=dev),
               torch.zeros(10, dtype=torch.int32, device=dev), pos, pos[:, 0] + 1,
               (pos * 3) % 200)
-    step = GraphStep(make_packed_fn(model), qp, pools, inputs)
+    step = GraphStep(make_packed_fn(model), qp, pools, inputs, packed_idle(inputs))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -651,3 +651,76 @@ def test_graph_pools_keep_their_addresses(dev):
     sched.pools[0]["pages_k_idx"] = sched.pools[0]["pages_k_idx"].clone()
     with pytest.raises(RuntimeError, match="in place"):
         sched.step({})
+
+
+@pytest.mark.parametrize("kv_quant", [True, False])
+def test_ring_decode_graph_is_bit_equal_to_eager(dev, kv_quant):
+    """The fixed-slot engine's decode step as a graph replay against the eager
+    step, each engine on its own ring: a left-padded batch's prefill, then
+    four steps' logits and every ring tensor bit for bit; a second batch of
+    the same size replays the same graph (captured once)."""
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    model, qp, _ = _route_model(dev, "fused")
+    sc = ServeConfig(cache_len=64, kv_quant=kv_quant, cache_dtype="float32", paged=False)
+    prompts = [list(range(40, 50)), [7, 8], list(range(1, 6))]
+    got = {}
+    for graph in (True, False):
+        eng = ServingEngine(model, qp, sc, batch_slots=3, graph=graph)
+        plen = max(len(p) for p in prompts)
+        pads = [plen - len(p) for p in prompts]
+        caches = eng._ring_caches(pads)
+        toks = torch.tensor([[0] * n + p for n, p in zip(pads, prompts)], dtype=torch.int32,
+                            device=dev)
+        tok, caches, _ = eng._prefill(qp, caches, {"tokens": toks})
+        logits = []
+        for pos in range(plen, plen + 4):
+            tok, lg = eng._decode_step(caches, tok, pos)
+            logits.append(lg.clone())
+            tok = tok.clone()
+        torch.cuda.synchronize()
+        rings = [{k: v.clone() for k, v in layer.items()} for layer in eng._ring]
+        tokens = eng.generate(prompts[::-1], max_new_tokens=5)
+        got[graph] = (logits, rings, tokens, eng.stats["graph_capture_s"], len(eng._decode))
+    for g, e in zip(got[True][0], got[False][0]):
+        assert torch.equal(g, e)
+    for g, e in zip(got[True][1], got[False][1]):
+        for k in g:
+            assert torch.equal(g[k], e[k]), k
+    assert got[True][2] == got[False][2]
+    assert got[True][3] > 0 and got[False][3] is None and got[True][4] == 1
+
+
+def test_draft_loop_graph_is_bit_equal_to_eager(dev):
+    """Two draft rounds (catch-up steps, then the loop of k + 1 forwards) as
+    graph replays against the eager runner: the drafts, the draft pools and
+    the launch counts equal (each replay adds one captured run's counts)."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import quantize_model
+    from repro_torch.serving.speculative import DEFAULT_DRAFT_SPEC, DraftRunner
+
+    model, _, _ = _route_model(dev, "fused")
+    draft = quantize_model(model, model.init(seed=0, device=dev), DEFAULT_DRAFT_SPEC)
+    got = {}
+    for graph in (True, False):
+        runner = DraftRunner(model, draft, slots=3, cache_len=64, k=3, block_size=8,
+                             kv_quant=True, token_budget=8, graph=graph)
+        build.reset_counts()
+        contexts = [list(range(40, 60)), [7, 8, 9], list(range(1, 12))]
+        rounds = []
+        for _ in range(2):
+            d = runner.propose([(i, i, c, 5, 3) for i, c in enumerate(contexts)])
+            rounds.append(d)
+            for i, c in enumerate(contexts):
+                c += [5] + d[i][:i]
+                runner.sync(i, len(c))
+        torch.cuda.synchronize()
+        got[graph] = (rounds, [{k: v.clone() for k, v in layer.items()} for layer in runner.pools],
+                      dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA), runner.capture_s)
+    assert got[True][0] == got[False][0]
+    for g, e in zip(got[True][1], got[False][1]):
+        for k in g:
+            assert torch.equal(g[k], e[k]), k
+    assert got[True][2] == got[False][2] and got[True][2]["fused_lut_gemm"] > 0
+    assert not any(got[True][3].values())
+    assert got[True][4] > 0 and got[False][4] is None

@@ -163,7 +163,7 @@ def test_packed_step_records_no_syncing_op(tmp_path, kv_quant):
         jax.random.PRNGKey(0)), spec))
     art = load_quantized(str(tmp_path), device="cpu")
     sc = ServeConfig.from_spec(art.spec, cache_len=64, block_size=8)
-    pools = art.model.init_caches(3, 64, sc.cache_dtype, quantized=sc.kv_quant,
+    pools = art.model.init_caches(3, 64, sc.cache_dtype, quantized=sc.kv_quant, layout="paged",
                                   block_size=8, device="cpu")
     step = make_packed_fn(art.model)
     inputs = _step_inputs()
@@ -199,7 +199,7 @@ def test_step_counts_replays_equal_eager_steps(tmp_path):
     save_quantized(tmp_path, cfg, MAIN_SPEC, j_quantize_model(jmodel, jmodel.init(
         jax.random.PRNGKey(0)), MAIN_SPEC))
     art = load_quantized(str(tmp_path), device="cpu")
-    pools = art.model.init_caches(3, 64, "float32", quantized=True, block_size=8,
+    pools = art.model.init_caches(3, 64, "float32", quantized=True, layout="paged", block_size=8,
                                   device="cpu")
     step = make_packed_fn(art.model)
     inputs = _step_inputs()
@@ -370,7 +370,7 @@ def test_paged_override_takes_the_plain_version(fresh_env, artifact):
     for value in ("0", "1"):
         fresh_env.setenv("REPRO_PAGED_KERNEL", value)
         kr.reset_env()
-        pools = art.model.init_caches(3, 64, "float32", quantized=True, block_size=8,
-                                      device="cpu")
+        pools = art.model.init_caches(3, 64, "float32", quantized=True, layout="paged",
+                                      block_size=8, device="cpu")
         got.append(step(art.params, pools, *_step_inputs())[1])
     assert torch.equal(got[0], got[1])

@@ -102,7 +102,7 @@ def test_port_first_step_logits_match_jax(exp):
     art = load_quantized(str(FIXTURE), device="cpu")
     sc = ServeConfig.from_spec(art.spec, **kw)
     pools = art.model.init_caches(slots, sc.cache_len, sc.cache_dtype, quantized=sc.kv_quant,
-                                  block_size=sc.block_size, device="cpu")
+                                  layout="paged", block_size=sc.block_size, device="cpu")
     _, logits = make_packed_fn(art.model)(art.params, pools,
                                           *(torch.from_numpy(exp[k]) for k in STEP_KEYS))
     want = exp["first_step_logits"]
