@@ -80,6 +80,28 @@ Phases, each printing one JSON line:
     draft_graph -- three draft rounds (catch-up, then the k + 1-forward
               loop) as graph replays against eager: drafts and the draft
               pool bit for bit.
+11. telemetry -- phase 5's model and requests on the graph engine at every
+              telemetry level: off, metrics (phase 5's own level), trace,
+              quality at JAX's defaults (1 probed step in 16, a shadow probe
+              every 32) and metrics fenced. Tokens equal phase 5's at every
+              level; launch counts exact (a probed step adds one forward, a
+              shadow probe one forward's projections); the counts of probed
+              steps and shadow probes the rule's; all 96 sites with every
+              gauge family; topk overlap exactly 1.0 at every site of every
+              probed step; the Perfetto trace (under ``build/``) parses with
+              one lane per request, each with its admit, first token and
+              finish; every Prometheus line parses. Per level: ms per step,
+              tokens/s, peak memory, the step records' host and device
+              seconds (fenced and not), TTFT / ITL / e2e / queue-wait p50 and
+              p99; at quality the probed graph's capture s, ms per probed
+              step, shadow ms, SQNR min and median.
+    probe_step -- three packed steps all probed (the probed graph) against
+              unprobed ones: logits and pools bit for bit, and the probed
+              graph's launches per replay (two forwards).
+    trained_quality -- the committed JAX-trained fixture at quality, every
+              step probed: ``expected.npz``'s tokens, and the first probed
+              step's statistics JAX's (``expected_probes.json``) within
+              ``TRAINED_RTOL`` / ``TRAINED_ATOL`` and a histogram margin.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -984,7 +1006,7 @@ def phase_graph_step(phase: str, model, params, sc, n_steps: int = 3) -> bool:
         for _ in range(n_steps):
             sched.step(results)
             logits.append(sched.last_logits.clone())
-        got[graph] = (logits, sched.pools, sched.counters["decode_steps"])
+        got[graph] = (logits, sched.pools, sched.stats["decode_steps"])
     logits_equal = [torch.equal(a, b) for a, b in zip(got[True][0], got[False][0])]
     pools_equal = all(torch.equal(a[k], b[k]) for a, b in zip(got[True][1], got[False][1])
                       for k in a)
@@ -1352,6 +1374,268 @@ def phase_draft_graph(model, draft, n_rounds: int = 3) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 11: telemetry levels and the quality probes
+# ---------------------------------------------------------------------------
+
+# the telemetry's span names (profiler ranges; phase_profile leaves them out)
+TELEMETRY_SPANS = {"packed_step", "draft_catchup", "draft_scan", "fallback_prefill",
+                   "fallback_step"}
+# (name, ServeConfig.telemetry) of the phase's five runs
+TELEMETRY_RUNS = (("off", "off"), ("metrics", "metrics"), ("trace", "trace"),
+                  ("quality", dict(level="quality", quality_sample_every=16,
+                                   quality_shadow_every=32)),
+                  ("metrics_fenced", dict(level="metrics", fence=True)))
+EXPFMT_LINE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{le="[^"]+"\})? (-?[0-9.e+-]+|[+-]?inf|nan)$'
+# trained_quality: float statistics within rtol 1e-4 / atol 1e-5 of JAX's
+# CPU values (the card's kernels sum in other orders than XLA on the CPU,
+# which moves each projection's input by ~1e-6 relative, and the activation
+# mean is a sum that cancels), index histograms within 4 counts per site (an
+# index flips where the card's token scale sits ulps from XLA's; a flip moves
+# one count between two bins)
+TRAINED_RTOL, TRAINED_ATOL, TRAINED_HIST_MARGIN = 1e-4, 1e-5, 4
+
+
+def telemetry_once(model, params, prompts, level) -> tuple[list, dict, object]:
+    """Phase 5's requests on a graph engine at one telemetry ``level``, every
+    count set to 0 first. Probed steps and shadow probes are timed apart (a
+    sync before and after each: both end in a copy to the host anyway), and
+    every probed step's host dict is kept. Returns the tokens, one result
+    dict and the engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.telemetry import TelemetryConfig
+
+    tel = TelemetryConfig(**level) if isinstance(level, dict) else level
+    sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64,
+                               telemetry=tel)
+    engine = ServingEngine(model, params, sc, batch_slots=8)
+    sched = engine.scheduler
+    probe_s, shadow_s, probes = [], [], []
+    if sched._quality is not None:
+        run_step, shadow, ingest = sched._run_step, sched._shadow_probe, sched._quality.ingest
+
+        def timed(fn, into):
+            def call(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t)
+                return out
+            return call
+
+        sched.probe_graph.capture(sched.pools)  # timed apart: probe_capture_s
+        timed_probe = timed(run_step, probe_s)
+        sched._run_step = lambda probe=False: timed_probe(probe) if probe else run_step(probe)
+        sched._shadow_probe = timed(shadow, shadow_s)
+        sched._quality.ingest = lambda d: (probes.append(d), ingest(d))[1]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, snap = engine.stats, engine.snapshot()
+    steps = sched._step_i
+    quality = sched._quality is not None
+    probed = sum(1 for i in range(steps) if i % 16 == 0) if quality else 0
+    shadows = len(shadow_s)
+    # each step's forward, each probed step's second forward and each
+    # shadow forward run every projection on its kernels; attention runs on
+    # its kernel in the first two only (the shadow attends without a cache)
+    layers = model.cfg.n_layers
+    counts = read_counts(FUSED_PER_LAYER, steps + probed + shadows, layers)
+    counts["expected_launches"]["paged_attn_int4"] = layers * (steps + probed)
+    counts["counts_ok"] = (counts["launches"] == counts["expected_launches"]
+                           and counts["dispatch"] == counts["expected_dispatch"]
+                           and not any(counts["plain_on_cuda"].values()))
+    n_tok = sum(len(o) for o in outs)
+    res = dict(wall_s=wall, packed_steps=steps, ms_per_step=wall / steps * 1e3,
+               tokens_per_s=n_tok / wall, capture_s=st["graph_capture_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               counts_ok=counts["counts_ok"], launches=counts["launches"],
+               expected_launches=counts["expected_launches"])
+    if snap.get("requests"):
+        res["latency_s"] = {name: {q: snap["requests"][name].get(q) for q in ("p50", "p99")}
+                            for name in ("ttft_s", "itl_s", "e2e_s", "queue_wait_s")}
+        res["step_record_s"] = {k: {q: snap["steps"][k].get(q) for q in ("mean", "p50", "p99")}
+                                for k in ("host_s", "device_s")}
+    if quality:
+        sqnr = sorted(float(v) for d in probes[-1:] for k, v in d.items()
+                      if k.endswith("/sqnr_db"))
+        res.update(probed_steps=len(probe_s), expected_probed_steps=probed,
+                   probe_capture_s=st.get("probe_capture_s"),
+                   ms_per_probed_step=float(np.mean(probe_s)) * 1e3,
+                   shadow_probes=shadows,
+                   expected_shadow_probes=sum(1 for i, rec in enumerate(sched.telemetry.steps)
+                                              if i % 32 == 0 and rec["decode_rows"] > 0),
+                   shadow_ms=float(np.mean(shadow_s)) * 1e3 if shadow_s else None,
+                   sqnr_db_min=sqnr[0], sqnr_db_median=float(np.median(sqnr)),
+                   shadow_kl=snap["histograms"]["numerics_shadow_logit_kl"],
+                   shadow_token_agreement=snap["gauges"]["numerics_shadow_token_agreement"],
+                   drift_alarms=snap["counters"]["numerics_drift_alarms"])
+    res["_probes"] = probes
+    return outs, res, engine
+
+
+def phase_telemetry(model, params, serve_tokens, smi_line) -> bool:
+    """Phase 11: phase 5's model and 16 requests on the graph engine at
+    every telemetry level -- off, metrics, trace, quality at JAX's defaults
+    (1 probed step in 16, a shadow probe every 32) and metrics fenced -- in
+    one call. Passes when the tokens of all five equal phase 5's; each run's
+    kernel launches are exactly phase 5's per step plus, at quality, a second
+    forward per probed step and the shadow forwards' projections; the
+    probed and shadow counts are what the rule gives; every one of the 96
+    sites has every gauge family; every probed step's topk overlap is
+    exactly 1.0 at every site; the Perfetto trace written under ``build/``
+    parses with one lane per request, each with its admit, first-token and
+    finish (the queued / prefill / decode slices); and every line of the
+    Prometheus text parses."""
+    import re
+
+    from repro_torch.core.numerics import _GAUGE_OF
+
+    prompts = serve_prompts(model.cfg.vocab_size)
+    runs, checks, ok = {}, {}, True
+    for name, level in TELEMETRY_RUNS:
+        outs, res, engine = telemetry_once(model, params, prompts, level)
+        probes = res.pop("_probes")
+        checks[name] = dict(tokens_equal_serve=outs == serve_tokens, counts_ok=res["counts_ok"])
+        if name in ("trace", "quality"):
+            path = engine.export_chrome_trace(ROOT / "build" / f"telemetry_{name}.json")
+            ev = json.loads(path.read_text())["traceEvents"]
+            lanes = {}
+            for e in ev:
+                if e["pid"] == 1 and e["ph"] == "X":
+                    lanes.setdefault(e["tid"], set()).add(e["name"])
+            checks[name]["trace_lanes_ok"] = (len(lanes) == len(prompts) and all(
+                v >= {"queued", "prefill", "decode"} for v in lanes.values()))
+            res["trace_file"] = str(path.relative_to(ROOT))
+        text = engine.telemetry.expfmt()
+        checks[name]["expfmt_ok"] = all(re.match(EXPFMT_LINE, line) or line.startswith("# ")
+                                        for line in text.splitlines())
+        res["expfmt_lines"] = len(text.splitlines())
+        if name == "quality":
+            gauges = engine.snapshot()["gauges"]
+            sites = sorted({k.rpartition("/")[0] for k in probes[0]})
+            checks[name].update(
+                sites=len(sites) == 6 * model.cfg.n_layers and sites[-1] == "095.mlp.wd",
+                gauges_ok=all(f"{fam}.{s}" in gauges for fam in _GAUGE_OF.values()
+                              for s in sites),
+                overlap_exact=all(v == 1.0 for d in probes for k, v in d.items()
+                                  if k.endswith("/out_overlap")),
+                probed_ok=res["probed_steps"] == res["expected_probed_steps"] == len(probes),
+                shadow_ok=res["shadow_probes"] == res["expected_shadow_probes"] > 0)
+            res["overlap_below_1"] = [(i, k, float(v)) for i, d in enumerate(probes)
+                                      for k, v in d.items()
+                                      if k.endswith("/out_overlap") and v != 1.0][:8]
+        runs[name] = res
+        ok &= all(checks[name].values())
+        del engine
+    ok &= phase_probe_step(model, params)
+    emit("telemetry", arch=model.cfg.arch_id, layers=model.cfg.n_layers,
+         requests=len(prompts), card=smi_line, checks=checks, ok=ok, **runs)
+    return ok
+
+
+def phase_probe_step(model, params, n_steps: int = 3) -> bool:
+    """Phase 11b: the serve phase's first ``n_steps`` packed steps on a
+    scheduler whose every step is probed (the probed graph) against an
+    unprobed one, each on fresh pools: every step's logits and, after them,
+    every pool tensor bit for bit. Reports what one replay of the probed
+    graph launches (two forwards: the fused LUT-GEMM, top-k and int4
+    attention kernels of both)."""
+    import torch
+
+    from repro_torch.kernels import build as kb
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.serving.telemetry import TelemetryConfig
+
+    got = {}
+    for level in ("off", TelemetryConfig(level="quality", quality_sample_every=1,
+                                         quality_shadow_every=1 << 30)):
+        sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16,
+                                   prefill_chunk=64, telemetry=level)
+        sched = Scheduler(model, params, sc, slots=8)
+        for p in serve_prompts(model.cfg.vocab_size):
+            sched.submit(p, 64)
+        logits, results = [], {}
+        for _ in range(n_steps):
+            sched.step(results)
+            logits.append(sched.last_logits.clone())
+        torch.cuda.synchronize()
+        got[level == "off"] = (logits, sched.pools, sched.probe_graph)
+    logits_equal = [torch.equal(a, b) for a, b in zip(got[False][0], got[True][0])]
+    pools_equal = all(torch.equal(a[k], b[k]) for a, b in zip(got[False][1], got[True][1])
+                      for k in a)
+    launches = got[False][2].counts.delta[kb.COUNTERS.index(kb.LAUNCHES)]
+    per_replay = {k: launches[k] for k in FUSED_PER_LAYER}
+    want = {k: 2 * v * model.cfg.n_layers for k, v in FUSED_PER_LAYER.items()}
+    ok = all(logits_equal) and pools_equal and per_replay == want
+    emit("probe_step", steps=n_steps, logits_equal=logits_equal, pools_equal=pools_equal,
+         probed_graph_launches_per_replay=per_replay, expected=want,
+         probe_capture_s=got[False][2].capture_s, ok=ok)
+    return ok
+
+
+def phase_trained_quality(dev) -> bool:
+    """Phase 11c: the committed JAX-trained fixture served on the card at
+    the ``quality`` level with every step probed (the probed graph): its
+    tokens must be ``expected.npz``'s, and its first probed step's
+    statistics JAX's (``expected_probes.json``) within ``TRAINED_RTOL`` /
+    ``TRAINED_ATOL`` and ``TRAINED_HIST_MARGIN`` counts per histogram, with
+    every topk overlap exactly 1.0."""
+    import numpy as np
+
+    from repro_torch.core.artifact import load_quantized
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.telemetry import TelemetryConfig
+
+    fixture = ROOT / "tests" / "fixtures" / "trained_oasis_smoke"
+    ref = json.loads((fixture / "expected_probes.json").read_text())
+    with np.load(fixture / "expected.npz") as z:
+        want_tokens = z["tokens"].tolist()
+        prompts = [list(p.encode()) for p in z["prompts"]]
+    art = load_quantized(str(fixture), device=dev)
+    sc = ServeConfig.from_spec(art.spec, telemetry=TelemetryConfig(**ref["telemetry"]),
+                               **ref["serve_config"])
+    engine = ServingEngine(art.model, art.params, sc, batch_slots=ref["batch_slots"])
+    probes = []
+    ingest = engine.scheduler._quality.ingest
+    engine.scheduler._quality.ingest = lambda d: (probes.append(d), ingest(d))[1]
+    tokens = engine.generate(prompts, max_new_tokens=len(want_tokens[0]))
+    got = probes[ref["step"]]
+    worst, bad = {}, []
+    for key, want in ref["probes"].items():
+        stat = key.rpartition("/")[2]
+        g, w = np.asarray(got.get(key, np.nan), np.float64), np.asarray(want, np.float64)
+        if g.shape != w.shape:
+            bad.append(key)
+            continue
+        if stat in ("a_hist", "w_hist"):
+            err = float(np.abs(g - w).sum())
+            fine = err <= TRAINED_HIST_MARGIN and g.sum() == w.sum()
+        else:
+            err = float(np.abs(g - w).max())
+            fine = bool(np.all(np.abs(g - w) <= TRAINED_ATOL + TRAINED_RTOL * np.abs(w)))
+        worst[stat] = max(worst.get(stat, 0.0), err)
+        if not fine:
+            bad.append(key)
+    overlap = all(v == 1.0 for d in probes for k, v in d.items() if k.endswith("/out_overlap"))
+    ok = (tokens == want_tokens and not bad and set(got) == set(ref["probes"]) and overlap
+          and engine.stats.get("probe_capture_s") is not None)
+    emit("trained_quality", arch=art.model.cfg.arch_id, tokens_equal=tokens == want_tokens,
+         probed_steps=len(probes), sites=len({k.rpartition("/")[0] for k in got}),
+         worst_abs_diff=worst, out_of_tolerance=bad, overlap_exact=overlap,
+         tolerance=dict(rtol=TRAINED_RTOL, atol=TRAINED_ATOL, hist=TRAINED_HIST_MARGIN), ok=ok)
+    return ok
+
+
 def phase_quickstart(dev) -> tuple[bool, dict, float]:
     """Phase 6: the ported quickstart on the card. Its own checks raise; the
     index LUT-GEMM (step 3, ``ops.lut_gemm``) and the Clustering Unit
@@ -1519,9 +1803,12 @@ def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = count(engine.stats) - steps0
-    # kernel events only: an aten op's row repeats the time of its kernels
+    # kernel events only: an aten op's row repeats the time of its kernels,
+    # and a telemetry span's device row (a user annotation) the time of the
+    # kernels inside it
     rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not (getattr(e, "is_user_annotation", False) or e.key in TELEMETRY_SPANS)]
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     attn = [(us, c) for us, k, c in rows if "paged_attn" in k]
@@ -1580,7 +1867,10 @@ def main() -> int:
                         ("trained ring", lambda: phase_trained_ring(dev)),
                         ("speculative", lambda: phase_speculative(model, qp, draft, serve_tokens,
                                                                   serve_tps, smi_line)),
-                        ("draft graph", lambda: phase_draft_graph(model, draft))):
+                        ("draft graph", lambda: phase_draft_graph(model, draft)),
+                        ("telemetry", lambda: phase_telemetry(model, qp, serve_tokens,
+                                                              smi_line)),
+                        ("trained quality", lambda: phase_trained_quality(dev))):
         try:
             passed = run()
         except Exception:  # report it and run the other phases; the run fails

@@ -11,7 +11,10 @@ the hashes and rebuilds the port's model. Scan-stacked leaves under
 ``save_quantized`` writes the same format from the port's model, with the
 layers stacked again when the config scans them, so the JAX package's
 ``load_quantized`` reads it. Tensors go first and the manifest last, through
-a rename: a directory without a manifest is an interrupted save.
+a rename: a directory without a manifest is an interrupted save. The
+manifest may carry per-tap calibration statistics (``calib_stats``) for the
+quality probes' drift scores; :func:`load_calib_stats` reads them from an
+artifact of either package.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from repro_torch.core.quantspec import QuantSpec, _cfg_from_json, _cfg_to_json
 from repro_torch.device import resolve_device
 
 __all__ = ["QuantizedArtifact", "save_quantized", "load_quantized", "load_tensors",
-           "FORMAT_VERSION"]
+           "load_calib_stats", "FORMAT_VERSION"]
 
 FORMAT_VERSION = 1
 
@@ -123,10 +126,14 @@ def _flatten(tree, path: str, tensors: dict[str, torch.Tensor]) -> dict:
 
 
 def save_quantized(directory: str, model_cfg: ModelConfig, spec: QuantSpec,
-                   qparams) -> pathlib.Path:
+                   qparams, calib_stats: dict | None = None) -> pathlib.Path:
     """Write the port's quantized model (a ``TransformerLM``) as an artifact
     the JAX package's ``load_quantized`` reads; returns the directory.
-    (Calibration statistics for drift detection are not written.)"""
+
+    ``calib_stats``: optional ``{tap_name: stats}`` for drift detection,
+    each ``stats`` either the dict ``core.numerics.activation_stats``
+    returns or the raw (tokens, K) calibration activations, summarised
+    here. Stored in the manifest, as JAX stores them."""
     from repro_torch.models.model import tree_from_params
 
     d = pathlib.Path(directory)
@@ -146,10 +153,26 @@ def save_quantized(directory: str, model_cfg: ModelConfig, spec: QuantSpec,
                         "sha256": hashlib.sha256(byte_arrays[k]).hexdigest()[:16]}
                     for k, t in tensors.items()},
     }
+    if calib_stats:
+        from repro_torch.core import numerics
+
+        manifest["calib_stats"] = {
+            tap: dict(st) if isinstance(st, dict) else numerics.activation_stats(st)
+            for tap, st in calib_stats.items()}
     tmp = d / ".manifest.json.tmp"
     tmp.write_text(json.dumps(manifest, indent=1))
     tmp.replace(d / "manifest.json")
     return d
+
+
+def load_calib_stats(directory: str) -> dict | None:
+    """Per-tap calibration statistics of an artifact's manifest, or None for
+    an artifact saved without them (the scheduler then takes the first
+    probed step as the drift baseline)."""
+    mf = pathlib.Path(directory) / "manifest.json"
+    if not mf.exists():
+        raise FileNotFoundError(f"{directory} has no manifest.json")
+    return json.loads(mf.read_text()).get("calib_stats")
 
 
 def load_quantized(directory: str, device=None, verify: bool = True) -> QuantizedArtifact:

@@ -46,6 +46,7 @@ __all__ = [
     "kernel_calls",
     "jnp_calls",
     "fallback_count",
+    "detect_calls",
     "detect_kernel_calls",
     "detect_jnp_calls",
     "detect_fallback_count",
@@ -164,6 +165,11 @@ def jnp_calls() -> int:
 
 def fallback_count() -> int:
     return sum(_FALLBACKS.values())
+
+
+def detect_calls() -> int:
+    """Detection resolutions of every route, demotions included."""
+    return sum(_DETECT_DISPATCH.values())
 
 
 def detect_kernel_calls() -> int:

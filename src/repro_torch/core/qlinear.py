@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 import repro_torch.core.kernel_routing as kr
+import repro_torch.core.numerics as nx
 import repro_torch.core.outlier as ol
 import repro_torch.core.quantize as qz
 from repro_torch.core.lut_gemm import lut_gemm as _lut_gemm_plain
@@ -63,7 +64,7 @@ class QLinearConfig:
     use_kernel: bool = False
     kernel: KernelRoute = "auto"
     detect_kernel: KernelRoute = "auto"
-    probe: bool = True  # read from artifacts; quality probes are not ported yet
+    probe: bool = True  # emit quality probes when a numerics collector is active
 
     def __post_init__(self):
         if self.kernel not in kr.ROUTES:
@@ -261,6 +262,13 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
         comp = (ol.compensate_gather(r, outs, p.qw, cfg.compute_dtype) if mode == "gather"
                 else ol.compensate_scatter(r, outs, p.qw, cfg.compute_dtype))
         y = y + comp
+
+    if cfg.probe and nx.collecting():
+        # quality probes (the quality telemetry level only): reductions on
+        # the intermediates above; y is never touched
+        nx.probe_qlinear(p, x, qa=qa, outs=outs, k_out=k_out,
+                         dynamic=cfg.detection == "dynamic" and cfg.outlier_frac > 0,
+                         scale_mode=cfg.scale_mode, tier=tier)
 
     if p.bias is not None:
         y = y + p.bias.to(cfg.compute_dtype)

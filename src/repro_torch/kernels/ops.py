@@ -8,7 +8,7 @@ detection; ``quantize_outlier_streaming`` quantizes and detects in one read
 of the activations. Leading batch axes are flattened here.
 ``autotune_lut_blocks`` times the LUT-GEMM kernels' tile choices for one
 shape and caches the winner, which later calls of that shape use.
-``index_histogram`` is not ported.
+``index_histogram`` counts codebook indices for the quality probes.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from repro_torch.kernels.lut_gemm import lut_gemm as lut_gemm_call
 from repro_torch.kernels.topk_outlier import streaming_quantize_outlier_call, topk_outlier_call
 
 __all__ = ["lut_gemm", "lut_gemm_fused", "autotune_lut_blocks", "bucketize", "topk_outlier",
-           "quantize_outlier_streaming"]
+           "quantize_outlier_streaming", "index_histogram"]
 
 # shape key -> (block_m, block_n, block_k), consulted by the LUT-GEMM wrappers
 # below when no explicit ``blocks`` is given
@@ -141,6 +141,26 @@ def lut_gemm_fused(x: torch.Tensor, codebook: torch.Tensor, qw: QuantizedWeight,
                        mul_form=x.dtype == torch.bfloat16, blocks=blocks)
     y = y.reshape(*lead, qw.shape[1])
     return (y * s.reshape(*lead, 1) * qw.scale).to(out_dtype)
+
+
+def index_histogram(idx: torch.Tensor, n_bins: int,
+                    weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Occupancy histogram of codebook indices: (n_bins,) float32 counts.
+
+    ``weights`` (optional, broadcastable to ``idx``) masks elements out with
+    0/1 weights. A float32 scatter-add, as JAX's: each row of the last axis
+    adds into its own ``n_bins`` counters (so a weight matrix's atomics do
+    not all meet on ``n_bins`` addresses), then the rows are summed. Counts
+    are integers, exact in float32 up to 2^24 per bin, in any order.
+    ``torch.bincount`` is not used: on CUDA it reads the largest index back
+    to the host, a sync that a captured graph cannot hold."""
+    rows = idx.reshape(-1, idx.shape[-1] if idx.ndim else 1).long()
+    if weights is None:
+        w = torch.ones(rows.shape, dtype=torch.float32, device=idx.device)
+    else:
+        w = torch.broadcast_to(weights, idx.shape).reshape(rows.shape).float()
+    part = torch.zeros((rows.shape[0], n_bins), dtype=torch.float32, device=idx.device)
+    return part.scatter_add_(1, rows, w).sum(0)
 
 
 def bucketize(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

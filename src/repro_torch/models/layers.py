@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import kernel_routing as kr
+from repro_torch.core import numerics
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.quantize import pack_int4, unpack_int4
@@ -72,9 +73,13 @@ class Dense(nn.Module):
         return y
 
 
-def dense_apply(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Float or quantized projection (a :class:`Dense` or a :class:`QLinear`)."""
-    if not isinstance(p, (Dense, QLinear)):
+def dense_apply(p: nn.Module, x: torch.Tensor, tap_name: str | None = None) -> torch.Tensor:
+    """Float or quantized projection (a :class:`Dense` or a :class:`QLinear`).
+    ``tap_name`` names a quantized projection's probe site (JAX's
+    calibration tap name); it does nothing outside ``numerics.collect``."""
+    if isinstance(p, QLinear):
+        numerics.announce(tap_name)
+    elif not isinstance(p, Dense):
         raise TypeError(f"not a projection module: {type(p).__name__}")
     return p(x)
 
@@ -372,7 +377,7 @@ def _paged_attend(cache: dict, q, q_pos, softcap: float, window: int = 0) -> tor
 
 
 def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-                    cache: dict | None = None, window: int = 0):
+                    cache: dict | None = None, window: int = 0, layer_tag: str = "attn"):
     """GQA attention. Returns (out, cache).
 
     ``positions``: (S,) shared (no cache, ring cache) or (B, S) per row
@@ -380,16 +385,17 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     ``token_slots`` (B,): the packed layout, where the tables are per
     scheduler slot and each row is a segment of slot ``token_slots[b]``. A
     ring cache may carry ``pad_len`` (B,): keys at positions below it are
-    masked.
+    masked. ``layer_tag`` prefixes the projections' probe sites
+    (``attn.q`` .. ``attn.o``).
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
     softcap = cfg.logit_softcap
 
-    q = dense_apply(p.wq, x).reshape(b, s, kv, g, hd)
-    k = dense_apply(p.wk, x).reshape(b, s, kv, hd)
-    v = dense_apply(p.wv, x).reshape(b, s, kv, hd)
+    q = dense_apply(p.wq, x, f"{layer_tag}.q").reshape(b, s, kv, g, hd)
+    k = dense_apply(p.wk, x, f"{layer_tag}.k").reshape(b, s, kv, hd)
+    v = dense_apply(p.wv, x, f"{layer_tag}.v").reshape(b, s, kv, hd)
     if cfg.pos_embed == "rope":
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
@@ -407,14 +413,15 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
                            cfg, k_min=cache.get("pad_len"))
     else:
         o = _attn_dispatch(q, k, v, positions, positions, window, True, softcap, cfg)
-    out = dense_apply(p.wo, o.reshape(b, s, h * hd))
+    out = dense_apply(p.wo, o.reshape(b, s, h * hd), f"{layer_tag}.o")
     return out, cache
 
 
-def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP with the fused ``[gate; up]`` projection."""
-    gate, up = torch.chunk(dense_apply(p.wi, x), 2, dim=-1)
-    return dense_apply(p.wd, F.silu(gate) * up)
+def mlp_apply(p: MLP, x: torch.Tensor, layer_tag: str = "mlp") -> torch.Tensor:
+    """SwiGLU MLP with the fused ``[gate; up]`` projection (probe sites
+    ``mlp.wi`` and ``mlp.wd``)."""
+    gate, up = torch.chunk(dense_apply(p.wi, x, f"{layer_tag}.wi"), 2, dim=-1)
+    return dense_apply(p.wd, F.silu(gate) * up, f"{layer_tag}.wd")
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,

@@ -23,7 +23,17 @@ what they compute): None runs them as CUDA graphs on the card and eagerly
 on the CPU, False eagerly everywhere, True as graphs or raises. Sampling is
 greedy at temperature 0; otherwise the scheduler seeds each request, and
 the fixed-slot engine samples batch-wide, as the JAX fallback does. A
-capture that fails raises; nothing falls back. Telemetry is not ported yet.
+capture that fails raises; nothing falls back.
+
+``ServeConfig.telemetry`` (``serving/telemetry.py``; ``"metrics"`` by
+default, or ``"off"``, ``"trace"``, ``"quality"`` or a ``TelemetryConfig``)
+gives every engine a telemetry object: ``stats`` is rebuilt from its
+registry, ``snapshot()`` returns every metric with the engine-side latency
+percentiles (TTFT, inter-token, queue wait, end to end),
+``export_chrome_trace(path)`` writes a Perfetto trace and
+``telemetry.expfmt()`` the Prometheus text. The fixed-slot engine counts
+into the same registry (``serving_fallback_*``) and spans its prefills and
+decode steps.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from repro_torch.core.quantspec import QuantSpec
 from repro_torch.serving.graph_step import GraphStep
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.speculative import SpeculativeConfig, load_draft
+from repro_torch.serving.telemetry import make_telemetry
 
 __all__ = ["ServeConfig", "make_prefill_step", "make_serve_step", "ServingEngine"]
 
@@ -58,6 +69,10 @@ class ServeConfig:
     seg_width: int = 1
     # greedy speculative decoding with a draft model; None = off
     speculative: SpeculativeConfig | None = None
+    # "off", "metrics" (counters, gauges, histograms, step ring), "trace"
+    # (adds request timelines and spans), "quality" (trace + numerics
+    # probes and the shadow probe) or a TelemetryConfig
+    telemetry: object = "metrics"
 
     @classmethod
     def from_spec(cls, spec: QuantSpec, **kw) -> "ServeConfig":
@@ -110,12 +125,18 @@ class ServingEngine:
     docstring for the two paths and ``graph``)."""
 
     def __init__(self, model, params, sc: ServeConfig, batch_slots: int = 8, draft=None,
-                 graph: bool | None = None):
+                 graph: bool | None = None, calib_stats=None, shadow_params=None):
         """``draft`` (speculative configs): ``(model, params)``, ``(model,
         params, spec)`` or a ``load_quantized`` artifact; when omitted,
-        ``sc.speculative.draft_artifact`` is loaded onto the params' device."""
+        ``sc.speculative.draft_artifact`` is loaded onto the params' device.
+
+        ``calib_stats`` / ``shadow_params`` serve the ``quality`` level (see
+        ``Scheduler``): per-tap calibration statistics
+        (``core.artifact.load_calib_stats``) for drift scores, and the shadow
+        probe's reference parameters (None: the serving parameters)."""
         self.model, self.params, self.sc, self.slots = model, params, sc, batch_slots
         self.device = next(params.parameters()).device
+        self.telemetry = make_telemetry(sc.telemetry)
         self.paged = sc.paged and model.cache_policies() is not None
         if self.paged:
             if sc.speculative is not None and draft is None:
@@ -125,7 +146,8 @@ class ServingEngine:
                                      "params[, spec]) to the engine")
                 draft = load_draft(sc.speculative.draft_artifact, device=self.device)
             self.scheduler = Scheduler(model, params, sc, slots=batch_slots, draft=draft,
-                                       graph=graph)
+                                       graph=graph, telemetry=self.telemetry,
+                                       calib_stats=calib_stats, shadow_params=shadow_params)
             return
         if sc.speculative is not None:
             raise ValueError("speculative decoding needs the paged scheduler (paged=True "
@@ -138,7 +160,8 @@ class ServingEngine:
         self._graph_on = graph
         self._prefill = make_prefill_step(model, sc)
         self._step = make_serve_step(model, sc)
-        self._fc = dict.fromkeys(_FALLBACK_COUNTERS, 0)
+        self._fc = {k: self.telemetry.counter(f"serving_fallback_{k}")
+                    for k in _FALLBACK_COUNTERS}
         self._ring: list[dict] | None = None  # batch_slots rows, made on first use
         self._pad_len = torch.zeros((batch_slots,), dtype=torch.int32, device=self.device)
         # per batch size: (token buffer (b, 1), position buffer (), graph or None)
@@ -152,7 +175,7 @@ class ServingEngine:
         tokens served, prompt and pad cells and their ratio, and the seconds
         its decode graphs took to capture."""
         if self.scheduler is None:
-            d = dict(self._fc)
+            d = {k: c.value for k, c in self._fc.items()}
             d["pad_fraction"] = d["pad_tokens"] / max(1, d["prompt_tokens"])
             caps = [g.capture_s for _, _, g in self._decode.values()
                     if g is not None and g.capture_s is not None]
@@ -165,6 +188,15 @@ class ServingEngine:
             d["draft_steps"] = self.scheduler.draft.steps
             d["acceptance_rate"] = d["accepted_tokens"] / max(1, d["drafted_tokens"])
         return d
+
+    def snapshot(self) -> dict:
+        """A JSON-able dump of every telemetry metric (``Telemetry.snapshot``)."""
+        return self.telemetry.snapshot()
+
+    def export_chrome_trace(self, path):
+        """Write a Chrome / Perfetto trace-event JSON file (open it at
+        ui.perfetto.dev); richest under ``telemetry="trace"``."""
+        return self.telemetry.export_chrome_trace(path)
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int | list[int] = 32,
                  eos_id: int | None = None, seed: int = 0) -> list[list[int]]:
@@ -226,13 +258,16 @@ class ServingEngine:
         tok_buf.copy_(tok[:, None])
         pos_buf.fill_(pos)
         if not self._graph_on:
-            nxt, _, logits = self._step(self.params, caches, tok_buf, pos_buf)
+            with self.telemetry.annotate("fallback_step"):
+                nxt, _, logits = self._step(self.params, caches, tok_buf, pos_buf)
             return nxt, logits
         if graph is None:
             graph = GraphStep(self._graph_fn, self.params, caches, (tok_buf, pos_buf),
                               (tok_buf.clone(), pos_buf.clone()))
             self._decode[b] = (tok_buf, pos_buf, graph)
-        return graph(caches)
+        graph.capture(caches)  # outside the span: it wraps the replay
+        with self.telemetry.annotate("fallback_step"):
+            return graph(caches)
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         """``argmax(logits / T + g)``, g standard Gumbel noise (B, vocab) from
@@ -255,10 +290,11 @@ class ServingEngine:
         toks = torch.tensor([[0] * n + list(p) for n, p in zip(pads, prompts)],
                             dtype=torch.int32).to(self.device)
         caches = self._ring_caches(pads)
-        self._fc["prefills"] += 1
-        self._fc["prompt_tokens"] += b * plen
-        self._fc["pad_tokens"] += sum(pads)
-        tok, caches, logits = self._prefill(self.params, caches, {"tokens": toks})
+        self._fc["prefills"].add()
+        self._fc["prompt_tokens"].add(b * plen)
+        self._fc["pad_tokens"].add(sum(pads))
+        with self.telemetry.annotate("fallback_prefill"):
+            tok, caches, logits = self._prefill(self.params, caches, {"tokens": toks})
         vocab = self.model.cfg.vocab_size
         gen = None
         if self.sc.temperature > 0:
@@ -268,7 +304,7 @@ class ServingEngine:
         outs = [tok]
         for pos in range(plen, plen + max_new_tokens - 1):
             tok, logits = self._decode_step(caches, tok, pos)
-            self._fc["steps"] += 1
+            self._fc["steps"].add()
             tok = self._sample(logits, gen) if gen is not None else tok.clone()
             if eos_id is not None:
                 done = done | (tok == eos_id)
@@ -276,7 +312,7 @@ class ServingEngine:
             outs.append(tok)
             if eos_id is not None and bool(done.all()):
                 break
-        self._fc["tokens"] += b * len(outs)
+        self._fc["tokens"].add(b * len(outs))
         rows = torch.stack(outs, dim=1).tolist()
         pad = eos_id if eos_id is not None else 0
         return [row + [pad] * (max_new_tokens - len(row)) for row in rows]

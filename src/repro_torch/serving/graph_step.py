@@ -4,9 +4,10 @@
 JAX compiles a serving step once per shape and runs it as one program.
 Run eagerly, the port's step is hundreds of small PyTorch ops and kernel
 launches per layer, each issued from Python. A step of fixed shape -- the
-scheduler's packed step (``rows x seg_width``), the draft model's catch-up
-step and its ``k + 1``-forward loop, the fixed-slot engine's ring decode
-step -- is captured once by :class:`GraphStep`, on its first call, and
+scheduler's packed step (``rows x seg_width``) and, at the ``quality``
+telemetry level, its probed step, the draft model's catch-up step and its
+``k + 1``-forward loop, the fixed-slot engine's ring decode step -- is
+captured once by :class:`GraphStep`, on its first call, and
 replayed after: its inputs live in static device buffers that the caller
 fills before each call (:class:`StepInputs` for the ones the host packs),
 the caches are written in place, and the outputs come back in static
@@ -35,6 +36,7 @@ warm-up's counts are taken off too.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from collections import Counter
 
@@ -136,29 +138,49 @@ class GraphStep:
         self.capture_s: float | None = None
 
     def __call__(self, pools: list[dict]):
-        if pool_ptrs(pools) != self.ptrs:
-            raise RuntimeError("the pools a captured step writes were replaced; a graph "
-                               "holds their addresses, so they must be written in place")
-        if self.graph is None:
-            self._capture(pools)
+        self.capture(pools)
         self.graph.replay()
         self.counts.add()
         return self.out
 
-    def _capture(self, pools: list[dict]) -> None:
+    def capture(self, pools: list[dict]) -> None:
+        """Warm up and capture the step unless it is captured already (the
+        first call does it; a caller that times or annotates replays calls
+        it first)."""
+        if pool_ptrs(pools) != self.ptrs:
+            raise RuntimeError("the pools a captured step writes were replaced; a graph "
+                               "holds their addresses, so they must be written in place")
+        if self.graph is not None:
+            return
         t0 = time.perf_counter()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with StepCounts().record(), torch.cuda.stream(self.stream):
             self.fn(self.params, pools, *self.idle)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         graph = torch.cuda.CUDAGraph()
-        with self.counts.record(), torch.cuda.graph(graph, stream=self.stream):
+        with self.counts.record(), _no_gc(), torch.cuda.graph(graph, stream=self.stream):
             out_pools, self.out = self.fn(self.params, pools, *self.inputs)
         if pool_ptrs(out_pools) != self.ptrs:
             raise RuntimeError("the captured step returned other pool tensors than it was given")
         self.graph = graph
         self.idle = None
         self.capture_s = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """No automatic garbage collection in the body. A dead graph still held
+    by a reference cycle (an engine and its telemetry's gauge callbacks
+    form one) that the collector frees during a capture destroys its graph
+    there, which CUDA does not permit while a stream captures: the capture
+    fails."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def packed_idle(inputs: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:

@@ -83,9 +83,14 @@ class BlockAllocator:
     cached (refcount 0 but registered under a prefix hash: parked in an LRU,
     still matchable, evicted oldest-first when ``alloc`` needs the space).
     ``n_free`` counts free + cached blocks.
+
+    With an enabled ``telemetry``, the allocator's state is three gauges
+    read at snapshot time (``serving_blocks_free`` / ``_cached`` /
+    ``_live``), and each cached block reclaimed because ``alloc`` ran dry
+    adds to ``serving_block_evictions_pressure``.
     """
 
-    def __init__(self, n_blocks: int, prefix_cache: bool = False):
+    def __init__(self, n_blocks: int, prefix_cache: bool = False, telemetry=None):
         self.n_blocks = n_blocks
         self.prefix_cache = prefix_cache
         self.evictions = 0
@@ -96,6 +101,17 @@ class BlockAllocator:
         self._hash_to_block: dict[bytes, int] = {}
         self._block_hash: dict[int, bytes] = {}
         self._lru: OrderedDict[int, None] = OrderedDict()
+        self._c_evict = None
+        if telemetry is not None and telemetry.enabled:
+            telemetry.gauge("serving_blocks_free", "truly-free blocks",
+                            fn=lambda: len(self._free))
+            telemetry.gauge("serving_blocks_cached", "cached prefix blocks (LRU)",
+                            fn=lambda: len(self._lru))
+            telemetry.gauge("serving_blocks_live", "blocks held live (refcount >= 1)",
+                            fn=lambda: self.n_blocks - self.n_free)
+            self._c_evict = telemetry.counter(
+                "serving_block_evictions_pressure",
+                "cached prefix blocks reclaimed because alloc ran dry")
 
     @property
     def n_free(self) -> int:
@@ -187,6 +203,8 @@ class BlockAllocator:
         del self._hash_to_block[self._block_hash.pop(bid)]
         self._free.append(bid)
         self.evictions += 1
+        if self._c_evict is not None:
+            self._c_evict.add()
 
 
 def copy_blocks(pools: list[dict], src, dst) -> list[dict]:

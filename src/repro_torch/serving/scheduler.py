@@ -38,8 +38,20 @@ comes to the host in one copy, ``greedy_verify`` commits 1 to ``k + 1``
 tokens, blocks that hold only rejected drafts are freed
 (``BlockAllocator.truncate``) and the draft rewinds.
 
-Not ported yet: sliding-window and recurrent cache policies, telemetry and
-quality probes.
+Telemetry (``ServeConfig.telemetry``, ``serving/telemetry.py``): the serving
+counters are registry counters under JAX's ``serving_*`` names, ``stats``
+is rebuilt from them, and each request's lifecycle and each step's record
+go to the same object. None of it reads the device: cells are counted on
+the host's position array. At the ``quality`` level 1 in
+``quality_sample_every`` steps (step 0 always) runs the probed step
+(``speculative.make_probed_packed_fn``), on the card a second captured
+graph; its probe dict comes to the host in one copy for
+``core.numerics.QualityMonitor``. Every ``quality_shadow_every`` steps a
+cache-free teacher-forced forward over the deepest decoder's committed
+context (padded to ``cache_len``) gives the shadow probe's logit KL and
+agreements, computed on the host in numpy.
+
+Not ported yet: sliding-window and recurrent cache policies.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ import dataclasses
 import enum
 from collections import deque
 
+import numpy as np
 import torch
 
 from repro_torch.core import kernel_routing as kr
@@ -61,7 +74,8 @@ from repro_torch.serving.paged_cache import (
     prefix_seed,
 )
 from repro_torch.serving.speculative import (DraftRunner, greedy_verify, make_packed_fn,
-                                              rejection_sample)
+                                              make_probed_packed_fn, rejection_sample)
+from repro_torch.serving.telemetry import linear_buckets, log_buckets, make_telemetry
 
 __all__ = ["RequestState", "Request", "Scheduler"]
 
@@ -69,6 +83,12 @@ _COUNTERS = ("packed_steps", "decode_steps", "prefill_chunks", "mixed_steps",
              "decode_slot_tokens", "prefill_tokens", "packed_tokens", "prefix_hits",
              "prefix_hit_tokens", "prefill_skipped", "cow_copies", "preemptions",
              "spec_rounds", "drafted_tokens", "accepted_tokens", "rolled_back_tokens")
+
+
+def _softmax(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float64) - x.max()
+    e = np.exp(x)
+    return e / e.sum()
 
 
 class RequestState(enum.Enum):
@@ -127,10 +147,19 @@ class Scheduler:
     ``draft`` (speculative configs): ``(model, params)`` or ``(model,
     params, spec)``, e.g. a ``load_quantized`` artifact; the spec's KV policy
     sizes the draft pool.
+
+    ``telemetry``: the engine's telemetry object (default: made from
+    ``sc.telemetry``). At the ``quality`` level, ``calib_stats`` (per-tap
+    calibration statistics, ``core.artifact.load_calib_stats``) are what
+    live probes drift-score against (without them the first probed step is
+    the baseline), and ``shadow_params`` are the shadow probe's reference
+    parameters (None: the serving parameters, the self-reference whose
+    agreement must be 1).
     """
 
     def __init__(self, model, params, sc, slots: int = 8, draft=None,
-                 graph: bool | None = None):
+                 graph: bool | None = None, telemetry=None, calib_stats=None,
+                 shadow_params=None):
         policies = model.cache_policies()
         if not all(p.kind == "paged_kv" for p in policies):
             raise NotImplementedError("only paged_kv cache policies are ported")
@@ -140,6 +169,8 @@ class Scheduler:
             graph = self.device.type == "cuda"
         elif graph and self.device.type != "cuda":
             raise ValueError(f"a CUDA graph step needs the card; params are on {self.device}")
+        self.telemetry = tel = (telemetry if telemetry is not None
+                                else make_telemetry(getattr(sc, "telemetry", "metrics")))
         self.spec = sc.speculative
         self.draft: DraftRunner | None = None
         if self.spec is not None:
@@ -158,7 +189,7 @@ class Scheduler:
                 block_size=sc.block_size,
                 cache_dtype=dspec.kv_dtype if dspec else sc.cache_dtype,
                 kv_quant=(dspec.kv_bits is not None) if dspec else sc.kv_quant,
-                token_budget=self.spec.draft_token_budget, graph=graph)
+                token_budget=self.spec.draft_token_budget, graph=graph, telemetry=tel)
         # grid: rows x seg_width cells; every slot's decode or verify segment
         # (k + 1 cells under speculation) must fit at once
         self.seg_width = max(1, sc.seg_width)
@@ -182,7 +213,7 @@ class Scheduler:
                                        quantized=sc.kv_quant, layout="paged",
                                        block_size=sc.block_size, n_blocks=n_blocks,
                                        device=self.device)
-        self.allocator = BlockAllocator(n_blocks, prefix_cache=sc.prefix_cache)
+        self.allocator = BlockAllocator(n_blocks, prefix_cache=sc.prefix_cache, telemetry=tel)
         self._hash_seed = prefix_seed(
             family=model.cfg.family, n_layers=model.cfg.n_layers,
             n_kv_heads=model.cfg.n_kv_heads, head_dim=model.cfg.head_dim,
@@ -192,34 +223,118 @@ class Scheduler:
         self._running: list[Request] = []
         self._slot_free = list(range(slots - 1, -1, -1))
         self._next_rid = 0
-        self.counters = dict.fromkeys(_COUNTERS, 0)
-        self.peak_occupancy = 0.0
+        # the serving counters live in the telemetry registry (``stats``
+        # rebuilds its dict from them); at level off they are no-ops
+        self._c = {k: tel.counter(f"serving_{k}") for k in _COUNTERS}
+        self._g_peak = tel.gauge("serving_pool_occupancy_peak", "high-water live-block fraction")
+        tel.gauge("serving_queue_depth", fn=lambda: len(self._queue))
+        tel.gauge("serving_running_requests", fn=lambda: len(self._running))
+        # GEMM and detection routes (core/kernel_routing): lazy gauges over
+        # the process-wide dispatch counts
+        self._g_routes = {
+            "lut_kernel_calls": tel.gauge("serving_lut_kernel_calls", fn=kr.kernel_calls,
+                                          help="projections routed to the fused LUT-GEMM kernel"),
+            "lut_jnp_calls": tel.gauge("serving_lut_jnp_calls", fn=kr.jnp_calls,
+                                       help="projections routed to the plain LUT-GEMM"),
+            "lut_fallbacks": tel.gauge("serving_lut_fallbacks", fn=kr.fallback_count,
+                                       help="explicit kernel->plain GEMM demotions"),
+            "outlier_detect_calls": tel.gauge(
+                "serving_outlier_detect_calls", fn=kr.detect_calls,
+                help="outlier-branch detection resolutions (any route)"),
+            "outlier_kernel_calls": tel.gauge(
+                "serving_outlier_kernel_calls", fn=kr.detect_kernel_calls,
+                help="detections routed to the Orizuru kernels"),
+            "outlier_jnp_calls": tel.gauge(
+                "serving_outlier_jnp_calls", fn=kr.detect_jnp_calls,
+                help="detections routed to the plain stable sort / threshold scoring"),
+            "outlier_fallbacks": tel.gauge(
+                "serving_outlier_fallbacks", fn=kr.detect_fallback_count,
+                help="explicit detection kernel->plain demotions"),
+            "outlier_comp_gather": tel.gauge(
+                "serving_outlier_comp_gather",
+                fn=lambda: kr.comp_route_counts().get("gather", 0),
+                help="compensations resolved to the row-gather route"),
+            "outlier_comp_scatter": tel.gauge(
+                "serving_outlier_comp_scatter",
+                fn=lambda: kr.comp_route_counts().get("scatter", 0),
+                help="compensations resolved to the scatter + dense route"),
+        }
+        k1 = (self.spec.k + 1) if self.spec else 1
+        self._h_accept = tel.histogram("serving_spec_accepted_per_round",
+                                       linear_buckets(0.0, float(k1), k1),
+                                       "accepted draft tokens per verify round")
+        self._h_draft_round = tel.histogram("serving_draft_round_s", log_buckets(1e-6, 1e2),
+                                            "draft propose (catch-up + scan) per round, seconds")
+        self._c_draft_time = tel.counter("serving_draft_time_s",
+                                         "total seconds in draft proposal")
+        self._c_target_time = tel.counter("serving_target_time_s",
+                                          "total seconds in target packed steps")
+        self._g_live_peak = tel.gauge(
+            "serving_peak_live_blocks_per_seq",
+            help="high-water live (non-freed) blocks held by any one request")
         self._packed_fn = make_packed_fn(model)
         self._in = StepInputs(((slots, max_blk), (rows,), (rows, self.seg_width), (rows,),
                                (rows, self.seg_width)), self.device)
         self.graph = (GraphStep(self._packed_fn, params, self.pools, self._in.dev,
                                 packed_idle(self._in.dev)) if graph else None)
         self.last_logits: torch.Tensor | None = None  # (rows, S, vocab) of the last step
+        # ---- quality level: the numerics probes ------------------------------
+        # every other level runs the packed step alone; quality runs the
+        # probed step (a second graph on the card) on sampled steps
+        self._quality = None
+        self.probe_graph: GraphStep | None = None
+        self._step_i = 0
+        if tel.quality:
+            from repro_torch.core import numerics as nx
+
+            self._probed_fn = make_probed_packed_fn(model)
+            self._probe_layout: list[tuple[str, tuple[int, ...]]] = []
+            if graph:
+                self.probe_graph = GraphStep(self._probe_step, params, self.pools,
+                                             self._in.dev, packed_idle(self._in.dev))
+            self._quality = nx.QualityMonitor(tel, calib_stats=calib_stats,
+                                              drift_threshold=tel.cfg.quality_drift_threshold)
+            self._shadow_params = shadow_params if shadow_params is not None else params
+            self._shadow_len = sc.cache_len
+            self._h_shadow_kl = tel.histogram(
+                "numerics_shadow_logit_kl", log_buckets(1e-9, 1e3),
+                "KL(serving || shadow reference) at the probed decode position, nats")
+            self._g_shadow_top1 = tel.gauge(
+                "numerics_shadow_top1_agreement",
+                "serving vs shadow argmax agreement at the probed position")
+            self._g_shadow_agree = tel.gauge(
+                "numerics_shadow_token_agreement",
+                "teacher-forced shadow greedy agreement over the committed decode window")
+            self._c_shadow = tel.counter("numerics_shadow_probes",
+                                         "shadow-reference forwards run")
+            if self.spec is not None:
+                self._h_first_reject = tel.histogram(
+                    "numerics_spec_first_reject_pos",
+                    linear_buckets(0.0, float(self.spec.k + 1), self.spec.k + 1),
+                    "draft position of the first greedy rejection")
 
     @property
     def stats(self) -> dict:
-        d = dict(self.counters)
-        d["peak_occupancy"] = self.peak_occupancy
-        d["lut_kernel_calls"] = kr.kernel_calls()
-        d["lut_jnp_calls"] = kr.jnp_calls()
-        d["lut_fallbacks"] = kr.fallback_count()
-        d["outlier_kernel_calls"] = kr.detect_kernel_calls()
-        d["outlier_jnp_calls"] = kr.detect_jnp_calls()
+        """The serving counters, rebuilt from the telemetry registry (all
+        zeros under ``telemetry="off"``), with the seconds the graphs took to
+        capture (None before a capture, and without graphs)."""
+        d = {k: c.value for k, c in self._c.items()}
+        d["peak_occupancy"] = self._g_peak.value
+        d["peak_live_blocks_per_seq"] = self._g_live_peak.value
+        for k, g in self._g_routes.items():
+            d[k] = g.value
         d["graph_capture_s"] = None if self.graph is None else self.graph.capture_s
+        if self.probe_graph is not None:
+            d["probe_capture_s"] = self.probe_graph.capture_s
         if self.draft is not None:
             d["draft_capture_s"] = self.draft.capture_s
         return d
 
     def _count(self, key: str, n: int = 1) -> None:
-        self.counters[key] += n
+        self._c[key].add(n)
 
     def _note_occupancy(self) -> None:
-        self.peak_occupancy = max(self.peak_occupancy, self.allocator.occupancy)
+        self._g_peak.set_max(self.allocator.occupancy)
 
     # ----------------------------------------------------------------- host
     def submit(self, prompt: list[int], max_new_tokens: int, eos_id: int | None = None,
@@ -241,6 +356,7 @@ class Scheduler:
             gen = torch.Generator(device=self.device).manual_seed(key)
         self._queue.append(Request(rid=rid, prompt=list(prompt), max_new_tokens=max_new_tokens,
                                    eos_id=eos_id, context=list(prompt), gen=gen))
+        self.telemetry.request_submitted(rid, len(prompt))
         return rid
 
     def run(self) -> dict[int, list[int]]:
@@ -293,6 +409,7 @@ class Scheduler:
                 self._count("prefix_hits")
                 self._count("prefix_hit_tokens", len(shared) * bs)
                 self._count("prefill_skipped", r.prefilled)
+            self.telemetry.request_admitted(r.rid, prefix_hit_tokens=len(shared) * bs)
             self._running.append(r)
             admitted += 1
         self._note_occupancy()
@@ -328,6 +445,11 @@ class Scheduler:
         """Assemble and run one grid: decode or verify segments first, then
         prefill segments FCFS over the remaining rows."""
         S = self.seg_width
+        tel = self.telemetry
+        t_host0 = tel.now()
+        blocks_alloc0 = self.allocator.blocks_allocated
+        blocks_freed0 = self.allocator.blocks_freed
+        cow0 = self._c["cow_copies"].value
         while True:
             for r in list(self._running):
                 if r.state is RequestState.RUNNING and r.decoding:
@@ -350,9 +472,14 @@ class Scheduler:
         # drafts after the plan is stable: no proposal is spent on a request
         # that growth or copy-on-write preempted; the draft pool is private
         drafts: dict[int, list[int]] = {}
+        draft_dt = 0.0
         if self.draft is not None and decoders:
+            t_d0 = tel.now()
             drafts = self.draft.propose([(r.rid, r.slot, r.context, r.next_token,
                                           self._k_for(r)) for r in decoders])
+            draft_dt = tel.now() - t_d0
+            self._h_draft_round.observe(draft_dt)
+            self._c_draft_time.add(draft_dt)
 
         bt, slot_ids, pos, ctx, tok = self._in.arrays()
         bt.fill(-1)
@@ -384,7 +511,14 @@ class Scheduler:
             n_prefill += n
         ctx[:] = pos.max(axis=1) + 1
 
-        logits = self._run_step()
+        # quality: 1 in quality_sample_every steps (step 0 too) runs the probed step
+        probe_now = (self._quality is not None
+                     and self._step_i % tel.cfg.quality_sample_every == 0)
+        t_dispatch = tel.now()
+        logits, flat_probes = self._run_step(probe_now)
+        t_done = tel.now()
+        self._c_target_time.add(t_done - t_dispatch)
+        probes = None if flat_probes is None else self._unpack_probes(flat_probes)
         finishing = [(r, last_cell[r.rid]) for r, start, n in segments
                      if start + n >= len(r.context) and r.next_token is None]
         if self.spec is not None:
@@ -395,8 +529,9 @@ class Scheduler:
             sampled = [(r, verify_cells[r.rid][0]) for r in decoders] + finishing
             picks = dict(zip((r.rid for r, _ in sampled), self._sample(logits, sampled)))
 
+        n_cells = int((pos >= 0).sum())  # from the host's array: no device read
         self._count("packed_steps")
-        self._count("packed_tokens", int((pos >= 0).sum()))
+        self._count("packed_tokens", n_cells)
         self._count("prefill_tokens", n_prefill)
         self._count("prefill_chunks", len(segments))
         if decoders:
@@ -404,14 +539,24 @@ class Scheduler:
         if decoders and segments:
             self._count("mixed_steps")
 
+        shadow_pick = shadow_args = None
+        if (self._quality is not None and decoders
+                and self._step_i % tel.cfg.quality_shadow_every == 0):
+            # the deepest committed context has the most decode positions to audit
+            shadow_pick = max(decoders, key=lambda q: len(q.context))
         for r in decoders:
             cells = verify_cells[r.rid]
+            if r is shadow_pick:
+                # the first verify cell's logits condition on context +
+                # [next_token], the prefix the shadow forward replays
+                shadow_args = (r, logits[cells[0]].float().cpu().numpy(), len(r.context) + 1)
             r.context.append(r.next_token)
             r.prefilled += 1  # the segment's first cell wrote it
             if self.spec is None:
                 r.next_token = picks[r.rid]
                 r.generated.append(r.next_token)
                 self._count("decode_slot_tokens")
+                tel.tokens_committed(r.rid, 1)
                 continue
             d = drafts.get(r.rid, [])
             committed = greedy_verify([int(am[c]) for c in cells], d, r.eos_id)
@@ -431,27 +576,118 @@ class Scheduler:
             self._count("accepted_tokens", n_acc)
             self._count("rolled_back_tokens", len(d) - n_acc)
             self._count("decode_slot_tokens", len(committed))
+            self._h_accept.observe(n_acc)
+            if self._quality is not None and n_acc < len(d):
+                # acceptance attribution: the draft position that broke first
+                self._h_first_reject.observe(float(n_acc))
+            tel.tokens_committed(r.rid, len(committed))
+            tel.request_event(r.rid, "verify_round", drafted=len(d), accepted=n_acc,
+                              committed=len(committed))
             self._rollback(r)
             self.draft.sync(r.slot, len(r.context))
         for r, start, n in segments:
             r.prefilled = start + n
+            tel.request_event(r.rid, "prefill_chunk", start=start, n=n)
             if r.decoding and r.next_token is None:
                 r.next_token = picks[r.rid]
                 r.generated.append(r.next_token)
+                tel.first_token(r.rid)
         for r in self._running:
             self._register_full_blocks(r)
+            self._g_live_peak.set_max(len(r.blocks))
         for r in [r for r in self._running if r.done]:
             self._finish(r, results)
+        if probes is not None:
+            self._quality.ingest(probes)
+        if shadow_args is not None:
+            self._shadow_probe(*shadow_args)
+        self._step_i += 1
+        if tel.enabled:
+            dec_rows = len(decoders) * self._dec_rows
+            tel.step_record(
+                host_s=(t_dispatch - t_host0 - draft_dt) + (tel.now() - t_done),
+                device_s=t_done - t_dispatch, cells=n_cells, budget=self.token_budget,
+                decode_rows=0 if self.spec else dec_rows,
+                verify_rows=dec_rows if self.spec else 0,
+                prefill_rows=sum(-(-n // S) for _, _, n in segments),
+                blocks_allocated=self.allocator.blocks_allocated - blocks_alloc0,
+                blocks_freed=self.allocator.blocks_freed - blocks_freed0,
+                blocks_copied=self._c["cow_copies"].value - cow0)
 
-    def _run_step(self) -> torch.Tensor:
-        """Copy the packed inputs to the device and run the step (graph
-        replay or eager). Returns its logits, (rows, S, vocab) float32."""
+    def _run_step(self, probe: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Copy the packed inputs to the device and run the step, or with
+        ``probe`` the probed step (graph replay or eager; a graph is captured
+        before the ``packed_step`` span opens). Returns its logits, (rows, S,
+        vocab) float32, and the probed step's probes packed in one tensor
+        (``_unpack_probes``) or None. Under ``fence`` it waits for the step,
+        so the step record's device time is the step's."""
         inputs = self._in.upload()
-        if self.graph is not None:
-            self.last_logits = self.graph(self.pools)
-        else:
-            _, self.last_logits = self._packed_fn(self.params, self.pools, *inputs)
-        return self.last_logits
+        graph = self.probe_graph if probe else self.graph
+        if graph is not None:
+            graph.capture(self.pools)
+        with self.telemetry.annotate("packed_step"):
+            if graph is not None:
+                out = graph(self.pools)
+            else:
+                fn = self._probe_step if probe else self._packed_fn
+                out = fn(self.params, self.pools, *inputs)[1]
+            if self.telemetry.fence and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        logits, flat = out if probe else (out, None)
+        self.last_logits = logits
+        return logits, flat
+
+    @torch.inference_mode()
+    def _probe_step(self, params, pools, *inputs):
+        """The probed step with its probes packed into one float32 tensor
+        (so that they come to the host in one copy); their keys and shapes
+        go to ``_probe_layout``. Returns (pools, (logits, flat probes))."""
+        pools, logits, probes = self._probed_fn(params, pools, *inputs)
+        self._probe_layout = [(k, tuple(v.shape)) for k, v in probes.items()]
+        flat = torch.cat([v.float().reshape(-1) for v in probes.values()])
+        return pools, (logits, flat)
+
+    def _unpack_probes(self, flat: torch.Tensor) -> dict[str, np.ndarray]:
+        """The probes as {site/stat: numpy array}, in one copy to the host."""
+        host = flat.cpu().numpy()
+        out, at = {}, 0
+        for key, shape in self._probe_layout:
+            n = int(np.prod(shape, dtype=np.int64))
+            out[key] = host[at : at + n].reshape(shape)
+            at += n
+        return out
+
+    @torch.inference_mode()
+    def _shadow_probe(self, r: Request, served: np.ndarray, prefix_len: int) -> None:
+        """The shadow quality probe (quality level, sampled): ``r``'s
+        committed context, zero-padded to ``cache_len``, through a cache-free
+        forward on the shadow parameters (causality makes the padding inert
+        for every position read). Records the logit KL and top-1 agreement
+        at the probed decode position against the serving step's own logits,
+        and the teacher-forced greedy agreement over the committed decode
+        window."""
+        toks = r.context[: self._shadow_len]
+        m = len(toks)
+        if m < 2:
+            return
+        padded = torch.zeros((1, self._shadow_len), dtype=torch.int32)
+        padded[0, :m] = torch.tensor(toks, dtype=torch.int32)
+        out = self.model.apply(self._shadow_params, {"tokens": padded.to(self.device)})
+        sl = out.logits[0, :m, : self.model.cfg.vocab_size]
+        i = prefix_len - 1
+        if 0 <= i < m:
+            row = sl[i].float().cpu().numpy()
+            p, q = _softmax(served), _softmax(row)
+            kl = max(float(np.sum(p * (np.log(p + 1e-12) - np.log(q + 1e-12)))), 0.0)
+            self._h_shadow_kl.observe(kl)
+            self._g_shadow_top1.set(float(int(np.argmax(served)) == int(np.argmax(row))))
+            self.telemetry.quality_counter("numerics_shadow_logit_kl", kl)
+        start = max(len(r.prompt) - 1, 0)
+        if m - 1 > start:
+            pred = sl[start : m - 1].argmax(dim=-1).cpu().numpy()  # first maximum, as numpy's
+            ref = np.asarray(toks[start + 1 : m])
+            self._g_shadow_agree.set(float((pred == ref).mean()))
+        self._c_shadow.add()
 
     def _sample(self, logits: torch.Tensor, cells: list[tuple[Request, tuple[int, int]]]
                 ) -> list[int]:
@@ -558,7 +794,9 @@ class Scheduler:
         r.state = RequestState.PREEMPTED
         self._running.remove(r)
         self._queue.appendleft(r)
-        self._count("preemptions")
+        # serving_preemptions counts once here; JAX adds to it twice (in
+        # Scheduler._preempt and in Telemetry.request_preempted)
+        self.telemetry.request_preempted(r.rid)
 
     def _finish(self, r: Request, results: dict) -> None:
         self.allocator.free(list(reversed(r.blocks)))
@@ -568,3 +806,4 @@ class Scheduler:
         r.state = RequestState.FINISHED
         self._running.remove(r)
         results[r.rid] = r.output()
+        self.telemetry.request_finished(r.rid, n_generated=len(r.generated))

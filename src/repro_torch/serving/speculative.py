@@ -34,13 +34,15 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import numerics as nx
 from repro_torch.core.qlinear import QLinearConfig
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.serving.graph_step import GraphStep, StepInputs, packed_idle
 from repro_torch.serving.paged_cache import attach_tables, blocks_needed, detach_tables
+from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 __all__ = ["SpeculativeConfig", "DraftRunner", "greedy_verify", "rejection_sample",
-           "make_packed_fn", "load_draft", "DEFAULT_DRAFT_SPEC"]
+           "make_packed_fn", "make_probed_packed_fn", "load_draft", "DEFAULT_DRAFT_SPEC"]
 
 
 # The draft policy of the JAX package: W3 K-Means weights with a W4 guard on
@@ -93,6 +95,32 @@ def make_packed_fn(model):
     return packed_step
 
 
+def make_probed_packed_fn(model):
+    """The ``quality`` level's packed step: :func:`make_packed_fn`'s step,
+    then a probe-only forward under ``numerics.collect`` masked on
+    ``positions >= 0``. Returns (pools, logits, probes), ``probes`` the flat
+    ``{site/stat: tensor}`` dict, one site per quantized projection per
+    layer in forward order (``"000.attn.q"`` ..).
+
+    The pools and logits are the untouched step's, as in JAX, where the
+    probe forward's outputs are discarded. The port writes the pools in
+    place, so the probe forward writes this step's KV cells again: the same
+    kernels on the same inputs give the same bits, and each layer attends
+    over the same cells the first forward saw, so the pools after a probed
+    step equal an unprobed step's bit for bit."""
+    packed_step = make_packed_fn(model)
+
+    @torch.inference_mode()
+    def probed_step(params, pools, bt, slot_ids, positions, ctx, tokens):
+        pools, logits = packed_step(params, pools, bt, slot_ids, positions, ctx, tokens)
+        caches = attach_tables(pools, bt, ctx, token_slots=slot_ids)
+        with nx.collect(mask=(positions >= 0).float()) as col:
+            model.apply(params, {"tokens": tokens}, positions=positions, caches=caches)
+        return pools, logits, col.out
+
+    return probed_step
+
+
 def greedy_verify(targets: list[int], drafts: list[int],
                   eos_id: int | None = None) -> list[int]:
     """The committed tokens of one verify segment. ``targets[i]`` is the
@@ -139,7 +167,9 @@ class DraftRunner:
 
     ``graph``: None runs both steps as CUDA graphs on the card and eagerly on
     the CPU, False eagerly, True as graphs or raises. ``steps`` counts the
-    draft's dispatches (catch-up steps and loops).
+    draft's dispatches (catch-up steps and loops), as does the
+    ``telemetry``'s ``serving_draft_steps``; each dispatch is a
+    ``draft_catchup`` or ``draft_scan`` span.
 
     Rollback is the count: after verification ``sync(slot, len(context))``
     rewinds it, and rejected rows above the horizon are rewritten by the
@@ -150,7 +180,7 @@ class DraftRunner:
 
     def __init__(self, model, params, *, slots: int, cache_len: int, k: int,
                  block_size: int = 16, cache_dtype="float32", kv_quant: bool = False,
-                 token_budget: int = 0, graph: bool | None = None):
+                 token_budget: int = 0, graph: bool | None = None, telemetry=None):
         if any(p.kind != "paged_kv" for p in model.cache_policies()):
             raise NotImplementedError("only attention-cache (paged_kv) draft models are "
                                       "ported; recurrent drafts wait for their families")
@@ -171,6 +201,9 @@ class DraftRunner:
             raise ValueError(f"draft_token_budget must be >= 1, got {self.budget}")
         self.pos = [0] * slots
         self.steps = 0
+        self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
+        self._c_steps = self.telemetry.counter("serving_draft_steps",
+                                               "draft device dispatches (catch-up + scan)")
         self._packed = make_packed_fn(model)
         self._catch_in = StepInputs(((self.budget,), (self.budget, 1), (self.budget,),
                                      (self.budget, 1)), self.device)
@@ -216,14 +249,20 @@ class DraftRunner:
             drafts.append(tok)
         return pools, torch.stack(drafts)
 
-    def _dispatch(self, fn, graph: GraphStep | None, inputs: StepInputs, static=()):
+    def _dispatch(self, span: str, fn, graph: GraphStep | None, inputs: StepInputs,
+                  static=()):
         """Upload ``inputs`` and run one step: ``fn(params, pools, *static,
-        *inputs)``, or its graph. Returns the step's output."""
+        *inputs)``, or its graph (captured first, outside the span). Returns
+        the step's output."""
         dev = inputs.upload()
         self.steps += 1
+        self._c_steps.add()
         if graph is not None:
-            return graph(self.pools)
-        return fn(self.params, self.pools, *static, *dev)[1]
+            graph.capture(self.pools)
+        with self.telemetry.annotate(span):
+            if graph is not None:
+                return graph(self.pools)
+            return fn(self.params, self.pools, *static, *dev)[1]
 
     # ------------------------------------------------------------- lifecycle
     def reset(self, slot: int) -> None:
@@ -273,7 +312,8 @@ class DraftRunner:
                     leftover.append([slot, toks[n:], start + n])
                 row += n
             ctx[:] = pos[:, 0] + 1
-            self._dispatch(self._packed, self._catch_graph, self._catch_in, (self._bt,))
+            self._dispatch("draft_catchup", self._packed, self._catch_graph, self._catch_in,
+                           (self._bt,))
             pending = leftover
 
         slot_ids, tok0, pos0 = self._loop_in.arrays()
@@ -282,7 +322,8 @@ class DraftRunner:
         pos0.fill(-1)
         for row, (_rid, slot, context, next_token, _k) in enumerate(reqs):
             slot_ids[row], tok0[row], pos0[row] = slot, next_token, len(context)
-        dr = self._dispatch(self._loop, self._loop_graph, self._loop_in).cpu().numpy()
+        dr = self._dispatch("draft_scan", self._loop, self._loop_graph,
+                            self._loop_in).cpu().numpy()
         drafts: dict[int, list[int]] = {}
         for row, (rid, slot, context, _nt, k_r) in enumerate(reqs):
             if k_r > 0:

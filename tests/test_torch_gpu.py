@@ -597,7 +597,7 @@ def test_graph_step_is_bit_equal_to_the_eager_step(dev, route):
     g_sched, g_logits, g_pools, g_counts = _run_steps(model, qp, sc, graph=True)
     _, e_logits, e_pools, e_counts = _run_steps(model, qp, sc, graph=False)
     assert g_sched.graph is not None and g_sched.graph.capture_s > 0
-    assert g_sched.counters["decode_steps"] > 0 and g_sched.counters["prefill_chunks"] > 0
+    assert g_sched.stats["decode_steps"] > 0 and g_sched.stats["prefill_chunks"] > 0
     for g, e in zip(g_logits, e_logits):
         assert torch.equal(g, e)
     for g, e in zip(g_pools, e_pools):
@@ -633,6 +633,35 @@ def test_graph_capture_syncs_nothing(dev):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert logits.shape == (10, 1, model.cfg.vocab_size) and torch.isfinite(logits).all()
+
+
+def test_graph_capture_holds_off_the_garbage_collector(dev):
+    """No automatic collection runs while a step is captured: a dead graph
+    in a reference cycle (an engine and its telemetry's gauge callbacks form
+    one) collected there would be destroyed mid-capture, which fails the
+    capture. The collector runs again after it."""
+    import gc
+
+    from repro_torch.serving.graph_step import GraphStep, packed_idle
+    from repro_torch.serving.speculative import make_packed_fn
+
+    model, qp, sc = _route_model(dev, "fused")
+    packed, seen = make_packed_fn(model), []
+
+    def step_fn(params, pools, *inputs):
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+        return packed(params, pools, *inputs)
+
+    pools = model.init_caches(2, 64, sc.cache_dtype, quantized=sc.kv_quant, layout="paged",
+                              block_size=8, device=dev)
+    pos = torch.arange(10, dtype=torch.int32, device=dev).reshape(10, 1)
+    inputs = (torch.tensor([[0, 1, -1, -1], [2, -1, -1, -1]], dtype=torch.int32, device=dev),
+              torch.zeros(10, dtype=torch.int32, device=dev), pos, pos[:, 0] + 1,
+              (pos * 3) % 200)
+    logits = GraphStep(step_fn, qp, pools, inputs, packed_idle(inputs))(pools)
+    torch.cuda.synchronize()
+    assert seen == [(False, True), (True, False)] and gc.isenabled()
+    assert torch.isfinite(logits).all()
 
 
 def test_graph_pools_keep_their_addresses(dev):

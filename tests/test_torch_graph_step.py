@@ -8,7 +8,10 @@ CUDA graph, temperature sampling and the kernel-route environment overrides.
   1/4 grid, so every per-token RMS is exact in any summation order.
 * The packed step reads no tensor on the host and copies none to the
   device: under a dispatch mode that records aten ops, none of the ops that
-  sync or lift a host tensor appear (the guard of capture on the CPU).
+  sync or lift a host tensor appear (the guard of capture on the CPU). At
+  the telemetry levels off, metrics and trace each step records the same
+  ops, and a whole run the same ops apart from the spans' profiler ranges
+  (the counterpart of JAX's identical jaxprs).
 * ``rope_apply`` is bit-equal to its former formula.
 * ``StepCounts``: one recorded run added N times gives N eager runs' counts.
 * Temperature: ``jax.random.categorical(sub, l / T)`` is ``argmax(l / T +
@@ -127,10 +130,14 @@ class _Recorder(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.bad: list[str] = []
-        self.n_ops = 0
+        self.ops: list[str] = []
+
+    @property
+    def n_ops(self) -> int:
+        return len(self.ops)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n_ops += 1
+        self.ops.append(str(func))
         if func in _SYNCING:
             self.bad.append(str(func))
         if func.overloadpacket in (torch.ops.aten.index, torch.ops.aten.index_put_,
@@ -172,6 +179,44 @@ def test_packed_step_records_no_syncing_op(tmp_path, kv_quant):
     assert rec.n_ops > 100 and not rec.bad, rec.bad
     assert logits.shape == (6, 2, cfg.vocab_size) and torch.isfinite(logits).all()
     assert pool_ptrs(out_pools) == pool_ptrs(pools)
+
+
+def test_packed_step_ops_equal_at_off_metrics_and_trace(tmp_path):
+    """Telemetry wraps no step code: every packed step of a short run, op
+    by op, is the same at off, metrics and trace and holds no op that syncs
+    or lifts a host tensor; the whole run's aten ops are the same too, apart
+    from the profiler ranges (``profiler.*``) the spans open."""
+    cfg = j_smoke("llama3_2_1b")
+    jmodel = j_build(cfg)
+    save_quantized(tmp_path, cfg, MAIN_SPEC, j_quantize_model(jmodel, jmodel.init(
+        jax.random.PRNGKey(0)), MAIN_SPEC))
+    art = load_quantized(str(tmp_path), device="cpu")
+    prompts = [[1, 2, 3, 4, 5], [6, 7], [8, 9, 10]]
+
+    def run(level):
+        eng = ServingEngine(art.model, art.params,
+                            ServeConfig.from_spec(art.spec, cache_len=64, block_size=8,
+                                                  prefill_chunk=4, telemetry=level),
+                            batch_slots=2)
+        sched, steps = eng.scheduler, []
+        inner = sched._packed_fn
+
+        def recorded(*args):
+            with _Recorder() as rec:
+                out = inner(*args)
+            steps.append((rec.ops, rec.bad))
+            return out
+
+        sched._packed_fn = recorded
+        with _Recorder() as whole:
+            out = eng.generate(prompts, max_new_tokens=4)
+        return out, steps, [op for op in whole.ops if not op.startswith("profiler.")]
+
+    runs = [run(level) for level in ("off", "metrics", "trace")]
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    assert len(runs[0][1]) > 3 and runs[0][1] == runs[1][1] == runs[2][1]
+    assert not any(bad for _, bad in runs[0][1])
+    assert runs[0][2] == runs[1][2] == runs[2][2]
 
 
 def test_rope_apply_is_bit_equal_to_the_former_formula():

@@ -18,11 +18,19 @@ engine's greedy tokens for the example's five byte prompts (24 new tokens,
   differ in its last ulps between XLA and PyTorch; an A4 index flip would
   exceed it.
 
+``expected_probes.json`` holds the JAX engine's first probed step at the
+``quality`` telemetry level (``quality_sample_every=1``): every site's
+probe statistics, histograms as lists (``tests/test_torch_numerics.py``
+and ``chip_smoke.py``'s ``trained_quality`` hold the port to it).
+
 ``chip_smoke.py`` (phase ``trained_parity``) holds the port on the card
 against the same file. Regenerate the fixture -- it trains, so it is never
 run by the tests -- with::
 
     PYTHONPATH=src python tests/test_torch_trained.py --regenerate
+
+and only the probe file, from the committed artifact and without
+training, with ``--regenerate-probes``.
 """
 
 import json
@@ -48,6 +56,7 @@ from repro_torch.serving.speculative import make_packed_fn  # noqa: E402
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" / "trained_oasis_smoke"
 PROMPTS = ["def quantize(", "import jax", "class Model", "# The paper", "return x @ w"]
 STEP_KEYS = ("bt", "slot_ids", "pos", "ctx", "tok")  # the packed step's inputs, in order
+PROBES = FIXTURE / "expected_probes.json"
 
 
 def expected() -> dict:
@@ -72,7 +81,7 @@ def exp():
 
 def test_fixture_is_small_and_complete(exp):
     files = sorted(p.name for p in FIXTURE.iterdir())
-    assert files == ["expected.npz", "manifest.json", "tensors.npz"]
+    assert files == ["expected.npz", "expected_probes.json", "manifest.json", "tensors.npz"]
     assert sum(p.stat().st_size for p in FIXTURE.iterdir()) < 1_000_000
     assert list(exp["prompts"]) == PROMPTS
     assert exp["tokens"].shape == (len(PROMPTS), 24)
@@ -169,7 +178,34 @@ def regenerate(out: pathlib.Path = FIXTURE, steps: int = 200) -> None:
     print(f"wrote {out}: {sum(p.stat().st_size for p in out.iterdir())} bytes")
 
 
+def regenerate_probes(out: pathlib.Path = PROBES) -> None:
+    """The JAX engine's first probed step on the committed artifact (the
+    recorded ``ServeConfig`` fields at the ``quality`` level, every step
+    probed), written to ``out``; nothing is trained or re-quantized."""
+    from repro.serving.telemetry import TelemetryConfig
+
+    exp = expected()
+    kw, slots = serve_kwargs(exp)
+    model, params, spec = j_load(str(FIXTURE))
+    tel = TelemetryConfig(level="quality", quality_sample_every=1)
+    eng = JEngine(model, params, JServe.from_spec(spec, telemetry=tel, **kw), batch_slots=slots)
+    got = []
+    ingest = eng.scheduler._quality.ingest
+    eng.scheduler._quality.ingest = lambda probes: (got.append(probes), ingest(probes))[1]
+    tokens = eng.generate(prompt_tokens(exp), max_new_tokens=exp["tokens"].shape[1])
+    assert tokens == exp["tokens"].tolist()
+    probes = {k: np.asarray(v).tolist() for k, v in sorted(got[0].items())}
+    out.write_text(json.dumps({"serve_config": kw, "batch_slots": slots,
+                               "telemetry": {"level": "quality", "quality_sample_every": 1},
+                               "step": 0, "probes": probes}, indent=0))
+    print(f"wrote {out}: {len(probes)} probe values, {out.stat().st_size} bytes")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--regenerate"]:
-        sys.exit("usage: PYTHONPATH=src python tests/test_torch_trained.py --regenerate")
-    regenerate()
+    if sys.argv[1:] == ["--regenerate"]:
+        regenerate()
+    elif sys.argv[1:] == ["--regenerate-probes"]:
+        regenerate_probes()
+    else:
+        sys.exit("usage: PYTHONPATH=src python tests/test_torch_trained.py "
+                 "--regenerate | --regenerate-probes")
