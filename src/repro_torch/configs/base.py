@@ -75,7 +75,8 @@ class ModelConfig:
         return (self.vocab_size + 127) // 128 * 128
 
 
-_ARCHS = ["llama3_2_1b", "oasis_7b"]
+_ARCHS = ["llama3_2_1b", "oasis_7b", "h2o_danube_1_8b", "nemotron_4_15b",
+          "command_r_plus_104b", "musicgen_large", "granite_moe_3b_a800m", "qwen2_moe_a2_7b"]
 
 
 def list_archs() -> list[str]:

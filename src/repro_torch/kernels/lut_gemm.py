@@ -55,13 +55,14 @@ def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: 
                      seed: int = 0, w_bits: int = 4):
     """Kernel inputs on which the float32 sum is exact and the index choice
     is as hard as it gets; returns ``(x, scale, w_packed, boundaries, a_book,
-    w_book)`` on the CPU, for ``k <= 11008``. The nibble tier's weight
+    w_book)`` on the CPU, for ``k <= 29127``. The nibble tier's weight
     codebook has ``2 ** w_bits`` entries (W3: 8), the byte tier's 256.
 
     Both codebooks lie on a 1/8 grid with magnitudes <= 3, so each product is
-    a multiple of 1/64 and every partial sum over K <= 11008 stays below 2^24
-    such steps: any summation order gives the same float32 result, and a
-    kernel must equal the plain version bit for bit. A quarter of the
+    a multiple of 1/64 of magnitude at most 9, and every partial sum over
+    K <= 29127 (2^24 / (64 * 9)) stays below 2^24 such steps: any summation
+    order gives the same float32 result, and a kernel must equal the plain
+    version bit for bit. A quarter of the
     activations sit on ``s * b_j`` or within two ulps of it. For bfloat16 x,
     each row's scale is chosen so that ``x >= s * b_j`` and ``x / s >= b_j``
     disagree on that row's planted value: a kernel with the wrong compare
@@ -70,7 +71,7 @@ def exact_sum_inputs(m: int, k: int, n: int, x_dtype: torch.dtype, byte_packed: 
     from repro_torch.core.codebook import boundaries_from_centroids
     from repro_torch.models.model import _default_codebook
 
-    assert k <= 11008, "partial sums could leave the exact float32 range"
+    assert k * 64 * 9 < 2**24, "partial sums could leave the exact float32 range"
     g = torch.Generator().manual_seed(seed)
     a_book = torch.round(_default_codebook(4) * 8) / 8
     bounds = boundaries_from_centroids(a_book).contiguous()

@@ -1,7 +1,11 @@
-"""Building blocks of the dense decoder (port of ``repro/models/layers.py``).
+"""Building blocks of the decoders (port of ``repro/models/layers.py``).
 
 Every projection is either a :class:`Dense` (float weight ``(K, N)``) or a
 :class:`~repro_torch.core.qlinear.QLinear`; :func:`dense_apply` calls either.
+Norms are RMSNorm or LayerNorm, reduced in float32 (:func:`norm_apply`);
+positions are rotary (in attention) or sinusoidal (added to the embedding,
+:func:`sinusoidal_positions`); the MLP's activation is gated SiLU or GeLU,
+squared ReLU or plain GeLU (:func:`act_apply`, GeLU in JAX's tanh form).
 Attention runs on three branches:
 
 * no cache (training / full-sequence logits): ``_attn_dispatch`` takes the
@@ -46,13 +50,16 @@ __all__ = [
     "Dense",
     "dense_apply",
     "norm_apply",
+    "sinusoidal_positions",
     "rope_apply",
     "Attention",
     "MLP",
     "init_kv_cache",
     "init_paged_kv_cache",
     "attention_apply",
+    "act_apply",
     "mlp_apply",
+    "mlp_init",
 ]
 
 _NEG_INF = torch.finfo(torch.float32).min
@@ -84,11 +91,34 @@ def dense_apply(p: nn.Module, x: torch.Tensor, tap_name: str | None = None) -> t
     return p(x)
 
 
-def norm_apply(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32 (LayerNorm configs are not ported yet)."""
+def norm_apply(scale: torch.Tensor, x: torch.Tensor, kind: str = "rms",
+               bias: torch.Tensor | None = None, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (``kind="rms"``) or LayerNorm (``"layer"``: mean and variance,
+    then scale and ``bias``), reduced in float32 whatever x's dtype, as JAX
+    reduces them (``F.layer_norm`` on a bfloat16 input would not)."""
     xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+    if kind == "rms":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    elif kind == "layer":
+        xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+        y = xc * torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + eps)
+    else:
+        raise ValueError(f"unknown norm kind {kind!r}")
+    y = y * scale.float()
+    if kind == "layer":
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The classic sinusoidal embedding, ``[sin | cos]`` halves, (..., d)
+    float32 for positions of any shape (-1 marks a padded cell; its row is
+    finite and unused)."""
+    half = d // 2
+    freq = torch.exp(-math.log(10_000.0)
+                     * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -417,11 +447,37 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     return out, cache
 
 
-def mlp_apply(p: MLP, x: torch.Tensor, layer_tag: str = "mlp") -> torch.Tensor:
-    """SwiGLU MLP with the fused ``[gate; up]`` projection (probe sites
-    ``mlp.wi`` and ``mlp.wd``)."""
-    gate, up = torch.chunk(dense_apply(p.wi, x, f"{layer_tag}.wi"), 2, dim=-1)
-    return dense_apply(p.wd, F.silu(gate) * up, f"{layer_tag}.wd")
+GATED_ACTS = ("silu", "gelu")  # a fused [gate; up] projection, mlp.wi 2 * d_ff wide
+
+
+def act_apply(h: torch.Tensor, act_fn: str) -> torch.Tensor:
+    """The MLP's hidden activation: gated SiLU or GeLU over the ``[gate; up]``
+    halves, squared ReLU (``relu2``) or plain GeLU (``gelu_plain``). GeLU is
+    the tanh approximation, ``jax.nn.gelu``'s default."""
+    if act_fn in GATED_ACTS:
+        gate, up = torch.chunk(h, 2, dim=-1)
+        act = F.silu(gate) if act_fn == "silu" else F.gelu(gate, approximate="tanh")
+        return act * up
+    if act_fn == "relu2":
+        return torch.square(F.relu(h))
+    if act_fn == "gelu_plain":
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(f"unknown activation {act_fn!r}")
+
+
+def mlp_apply(p: MLP, x: torch.Tensor, act_fn: str = "silu",
+              layer_tag: str = "mlp") -> torch.Tensor:
+    """The MLP (probe sites ``<layer_tag>.wi`` and ``<layer_tag>.wd``)."""
+    hidden = act_apply(dense_apply(p.wi, x, f"{layer_tag}.wi"), act_fn)
+    return dense_apply(p.wd, hidden, f"{layer_tag}.wd")
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, act_fn: str, dtype, device) -> MLP:
+    """``wi`` (d, 2 d_ff) for the gated activations, else (d, d_ff), and
+    ``wd`` at JAX's scales."""
+    mult = 2 if act_fn in GATED_ACTS else 1
+    return MLP(dense_init(gen, d, mult * d_ff, dtype, device),
+               dense_init(gen, d_ff, d, dtype, device, 1.0 / math.sqrt(d_ff)))
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,

@@ -5,8 +5,10 @@
     out    = model.apply(params, {"tokens": t}, positions=..., caches=...)
     qparams = quantize_model(model, params, spec)     # Dense -> QLinear modules
 
-``params`` is the model's ``nn.Module``; ``model.apply`` calls it and wraps
-the result in :class:`ModelOutput`. Quantization without calibration data
+``params`` is the model's ``nn.Module``; ``model.apply`` calls the family's
+module (``transformer`` for dense and audio, ``moe`` for moe; ssm, hybrid
+and vlm are not ported yet) and wraps the result in :class:`ModelOutput`,
+with the MoE aux loss. Quantization without calibration data
 uses the structural Gaussian activation codebook, carried bit-equal to the
 JAX one (``gaussian_codebooks.py``). Calibration is not ported yet.
 """
@@ -27,44 +29,55 @@ from repro_torch.core.quantize import QuantizedWeight, quantize_weight
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.gaussian_codebooks import GAUSSIAN_CENTROIDS
 
 __all__ = ["Model", "ModelOutput", "build", "head_matrix", "quantize_model",
            "quantize_params", "params_from_numpy", "params_from_tree", "tree_from_params"]
 
+# the paper-quantizable projections; the router, the shared experts' gate,
+# the head and the embedding stay float whatever the spec says (as in JAX),
+# and so do the raw MoE expert arrays, which are not projections
 _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wi", "wd"}
+_SKIP_KEYS = {"router", "head", "embed", "shared_gate"}
+
+# ssm, hybrid and vlm are not ported yet (transformer.check_ported raises)
+_FAMILY_MODULES = {"dense": transformer, "audio": transformer, "moe": moe}
 
 
 @dataclasses.dataclass
 class ModelOutput:
     logits: torch.Tensor  # (B, S, vocab_padded) float32
     caches: Any = None
+    aux_loss: torch.Tensor | None = None  # moe: the layers' mean Switch loss
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
+    @property
+    def _mod(self):
+        return _FAMILY_MODULES[self.cfg.family]
+
     def init(self, seed: int = 0, device=None) -> transformer.TransformerLM:
         """Seeded random parameters on ``device`` (default: the card)."""
-        return transformer.init(self.cfg, seed, resolve_device(device))
+        return self._mod.init(self.cfg, seed, resolve_device(device))
 
     def init_caches(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                     quantized: bool = False, layout: str = "ring", block_size: int = 16,
                     n_blocks: int = 0, device=None) -> list[dict]:
-        return transformer.init_caches(self.cfg, batch, cache_len, dtype, quantized, layout,
-                                       block_size, n_blocks, resolve_device(device))
+        return self._mod.init_caches(self.cfg, batch, cache_len, dtype, quantized, layout,
+                                     block_size, n_blocks, resolve_device(device))
 
     def cache_policies(self):
-        return transformer.cache_policies(self.cfg)
+        return self._mod.cache_policies(self.cfg)
 
     def apply(self, params: transformer.TransformerLM, batch: dict, *, positions=None,
               caches=None, last_only: bool = False) -> ModelOutput:
-        logits, caches = transformer.apply(params, self.cfg, batch["tokens"],
-                                           positions=positions, caches=caches,
-                                           last_only=last_only)
-        return ModelOutput(logits, caches)
+        out = self._mod.apply(params, self.cfg, batch["tokens"], positions=positions,
+                              caches=caches, last_only=last_only)
+        return ModelOutput(*out)
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -116,6 +129,8 @@ def quantize_params(params: nn.Module, spec: QuantSpec, scan_layers: bool = True
                 sub = path if scan_layers else f"{path}/{name}"
             else:
                 sub = f"{path}/{name}" if path else name
+            if name in _SKIP_KEYS:
+                continue
             if name in _QUANT_KEYS and isinstance(child, L.Dense):
                 cfg = spec.resolve(sub)
                 if cfg is not None:
@@ -166,29 +181,71 @@ def _proj(p) -> nn.Module:
     return L.Dense(p["w"], p.get("b"))
 
 
+def _norm(p: dict) -> tuple:
+    return p["scale"], p.get("bias")
+
+
+def _ffn(bp: dict) -> dict:
+    """A block's FFN as ``Block`` keyword arguments: ``mlp`` or ``moe``."""
+    if "moe" not in bp:
+        m = bp["mlp"]
+        return {"mlp": L.MLP(_proj(m["wi"]), _proj(m["wd"]))}
+    m = bp["moe"]
+    shared = gate = None
+    if "shared" in m:
+        shared = L.MLP(_proj(m["shared"]["wi"]), _proj(m["shared"]["wd"]))
+        gate = _proj(m["shared_gate"])
+    return {"moe": moe.MoE(_proj(m["router"]), m["wi"], m["wd"], shared, gate)}
+
+
 def params_from_tree(tree: dict, cfg: ModelConfig) -> transformer.TransformerLM:
     """Build the port's model from a JAX-layout tree of torch tensors and
     ``QLinearParams`` (``blocks`` scan-stacked with a leading layer axis, or
-    a list of per-layer dicts)."""
+    a list of per-layer dicts): LayerNorm ``bias`` leaves, parallel blocks
+    without ``norm2``, and the moe subtree (``router``, the raw expert
+    arrays ``wi`` / ``wd``, ``shared``, ``shared_gate``) as JAX stores them."""
     blocks_in = tree["blocks"]
     stacked = isinstance(blocks_in, dict)
     blocks = []
     for i in range(cfg.n_layers):
         bp = _layer(blocks_in, i) if stacked else blocks_in[i]
-        a, m = bp["attn"], bp["mlp"]
+        a = bp["attn"]
         attn = L.Attention(_proj(a["wq"]), _proj(a["wk"]), _proj(a["wv"]), _proj(a["wo"]))
-        mlp = L.MLP(_proj(m["wi"]), _proj(m["wd"]))
-        blocks.append(transformer.Block(bp["norm1"]["scale"], attn, mlp,
-                                        bp["norm2"]["scale"]))
+        n1, b1 = _norm(bp["norm1"])
+        n2, b2 = _norm(bp["norm2"]) if "norm2" in bp else (None, None)
+        ffn = _ffn(bp)
+        blocks.append(transformer.Block(n1, attn, ffn.get("mlp"), n2, norm1_bias=b1,
+                                        norm2_bias=b2, moe=ffn.get("moe")))
     head = _proj(tree["head"]) if "head" in tree else None
-    return transformer.TransformerLM(cfg, tree["embed"]["table"], blocks,
-                                     tree["norm_f"]["scale"], head)
+    nf, bf = _norm(tree["norm_f"])
+    return transformer.TransformerLM(cfg, tree["embed"]["table"], blocks, nf, head, bf)
 
 
 def _proj_tree(p: nn.Module):
     if isinstance(p, QLinear):
         return p.params
     return {"w": p.w.data} if p.b is None else {"w": p.w.data, "b": p.b.data}
+
+
+def _norm_tree(scale: nn.Parameter, bias: nn.Parameter | None) -> dict:
+    return {"scale": scale.data} if bias is None else {"scale": scale.data, "bias": bias.data}
+
+
+def _block_tree(b: transformer.Block) -> dict:
+    out = {"norm1": _norm_tree(b.norm1, b.norm1_bias),
+           "attn": {k: _proj_tree(getattr(b.attn, k)) for k in ("wq", "wk", "wv", "wo")}}
+    if b.moe is not None:
+        m = b.moe
+        sub = {"router": _proj_tree(m.router), "wi": m.wi.data, "wd": m.wd.data}
+        if m.shared is not None:
+            sub["shared"] = {k: _proj_tree(getattr(m.shared, k)) for k in ("wi", "wd")}
+            sub["shared_gate"] = _proj_tree(m.shared_gate)
+        out["moe"] = sub
+    else:
+        out["mlp"] = {k: _proj_tree(getattr(b.mlp, k)) for k in ("wi", "wd")}
+    if b.norm2 is not None:
+        out["norm2"] = _norm_tree(b.norm2, b.norm2_bias)
+    return out
 
 
 def _stack(trees: list):
@@ -212,13 +269,10 @@ def _stack(trees: list):
 def tree_from_params(params: transformer.TransformerLM) -> dict:
     """The inverse of :func:`params_from_tree`: the JAX-layout tree of the
     port's model, with the layers stacked when its config scans them."""
-    blocks = [{"attn": {k: _proj_tree(getattr(b.attn, k)) for k in ("wq", "wk", "wv", "wo")},
-               "mlp": {k: _proj_tree(getattr(b.mlp, k)) for k in ("wi", "wd")},
-               "norm1": {"scale": b.norm1.data}, "norm2": {"scale": b.norm2.data}}
-              for b in params.blocks]
+    blocks = [_block_tree(b) for b in params.blocks]
     tree = {"embed": {"table": params.embed.data},
             "blocks": _stack(blocks) if params.cfg.scan_layers else blocks,
-            "norm_f": {"scale": params.norm_f.data}}
+            "norm_f": _norm_tree(params.norm_f, params.norm_f_bias)}
     if params.head is not None:
         tree["head"] = _proj_tree(params.head)
     return tree

@@ -1,4 +1,9 @@
-"""Dense decoder-only transformer LM (port of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM (port of ``repro/models/transformer.py``).
+
+Covers llama3.2-1b, h2o-danube (sliding-window attention), command-r-plus
+(parallel attention + FFN blocks, LayerNorm), nemotron-4 (squared ReLU,
+LayerNorm) and the musicgen backbone (sinusoidal positions, plain GeLU);
+``models/moe.py`` builds its blocks on the same stack.
 
 ``TransformerLM`` holds its layers in an ``nn.ModuleList`` where the JAX
 package scans over stacked parameters. The serving caches (ring buffers or
@@ -18,77 +23,119 @@ from repro_torch.models import layers as L
 __all__ = ["Block", "TransformerLM", "check_ported", "init", "apply", "init_caches",
            "cache_policies"]
 
+PORTED_FAMILIES = ("dense", "audio", "moe")
+
+
+def _param(t: torch.Tensor | None) -> nn.Parameter | None:
+    return None if t is None else nn.Parameter(t, requires_grad=False)
+
 
 class Block(nn.Module):
-    """Pre-norm block: ``x + attn(norm1(x))``, then ``+ mlp(norm2(x))``."""
+    """Pre-norm block. Sequential: ``x + attn(norm1(x))``, then ``+
+    ffn(norm2(x))``, the FFN an ``mlp`` or (moe family) a ``moe``.
+    Parallel (``cfg.parallel_blocks``, no ``norm2``): ``(x + attn(n)) +
+    mlp(n)`` with ``n = norm1(x)``, JAX's order of the two adds. ``norm*``
+    are the norms' scales; LayerNorm configs add ``norm*_bias``."""
 
-    def __init__(self, norm1, attn: L.Attention, mlp: L.MLP, norm2):
+    def __init__(self, norm1, attn: L.Attention, mlp: nn.Module | None = None,
+                 norm2=None, *, norm1_bias=None, norm2_bias=None, moe: nn.Module | None = None):
         super().__init__()
-        self.norm1 = nn.Parameter(norm1, requires_grad=False)
-        self.attn, self.mlp = attn, mlp
-        self.norm2 = nn.Parameter(norm2, requires_grad=False)
+        self.norm1, self.norm1_bias = _param(norm1), _param(norm1_bias)
+        self.attn = attn
+        self.mlp, self.moe = mlp, moe
+        self.norm2, self.norm2_bias = _param(norm2), _param(norm2_bias)
 
     def forward(self, x, cfg: ModelConfig, positions, cache):
-        a, cache = L.attention_apply(self.attn, L.norm_apply(self.norm1, x), cfg,
-                                     positions=positions, cache=cache,
+        """-> (x, cache, the MoE layer's aux loss or None)."""
+        n = L.norm_apply(self.norm1, x, cfg.norm, self.norm1_bias)
+        a, cache = L.attention_apply(self.attn, n, cfg, positions=positions, cache=cache,
                                      window=cfg.sliding_window)
+        if cfg.parallel_blocks:
+            return x + a + L.mlp_apply(self.mlp, n, cfg.act_fn), cache, None
         x = x + a
-        return x + L.mlp_apply(self.mlp, L.norm_apply(self.norm2, x)), cache
+        n = L.norm_apply(self.norm2, x, cfg.norm, self.norm2_bias)
+        if self.moe is not None:
+            m, aux = self.moe(n, cfg)
+            return x + m, cache, aux
+        return x + L.mlp_apply(self.mlp, n, cfg.act_fn), cache, None
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The dense RMSNorm / SwiGLU / RoPE LLaMA shape is what is ported."""
-    ported = (cfg.family == "dense" and cfg.norm == "rms" and cfg.act_fn == "silu"
-              and cfg.pos_embed == "rope" and not cfg.parallel_blocks)
-    if not ported:
-        raise NotImplementedError(f"config {cfg.arch_id} needs model features that are "
-                                  "not ported yet (only dense RMSNorm/SwiGLU/RoPE blocks)")
+    """The dense, audio and MoE families are ported; ssm, hybrid and vlm
+    are not yet."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"config {cfg.arch_id}: the {cfg.family} family is not "
+                                  f"ported yet (ported: {', '.join(PORTED_FAMILIES)})")
+    if cfg.norm not in ("rms", "layer") or cfg.pos_embed not in ("rope", "sinusoidal") \
+            or cfg.act_fn not in (*L.GATED_ACTS, "relu2", "gelu_plain"):
+        raise NotImplementedError(f"config {cfg.arch_id}: norm {cfg.norm!r}, positions "
+                                  f"{cfg.pos_embed!r} or activation {cfg.act_fn!r} is not "
+                                  "ported")
+    if cfg.family == "moe" and cfg.parallel_blocks:
+        raise NotImplementedError("parallel MoE blocks exist in neither package")
 
 
 class TransformerLM(nn.Module):
-    """Embedding, ``n_layers`` blocks, final norm and (tied or own) head."""
+    """Embedding (plus sinusoidal positions when the config asks), ``n_layers``
+    blocks, final norm and (tied or own) head."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks: list[Block],
-                 norm_f: torch.Tensor, head: nn.Module | None = None):
+                 norm_f: torch.Tensor, head: nn.Module | None = None,
+                 norm_f_bias: torch.Tensor | None = None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
-        self.norm_f = nn.Parameter(norm_f, requires_grad=False)
+        self.norm_f, self.norm_f_bias = _param(norm_f), _param(norm_f_bias)
         self.head = head
 
     def forward(self, tokens: torch.Tensor, positions=None, caches=None,
                 last_only: bool = False):
-        """tokens (B, S) -> (logits float32 (B, S, vocab_padded), caches)."""
+        """tokens (B, S) -> (logits float32 (B, S, vocab_padded), caches, the
+        sum of the MoE layers' aux losses or None)."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
         x = self.embed[tokens.long()].to(getattr(torch, cfg.compute_dtype))
+        if cfg.pos_embed == "sinusoidal":
+            pe = L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+            x = x + (pe if positions.ndim == 2 else pe[None])
         new_caches = None if caches is None else []
+        aux_total = None
         for i, block in enumerate(self.blocks):
-            x, c = block(x, cfg, positions, None if caches is None else caches[i])
+            x, c, aux = block(x, cfg, positions, None if caches is None else caches[i])
             if caches is not None:
                 new_caches.append(c)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         if last_only:
             x = x[:, -1:]
-        x = L.norm_apply(self.norm_f, x)
+        x = L.norm_apply(self.norm_f, x, cfg.norm, self.norm_f_bias)
         if cfg.tie_embeddings:
             logits = x @ self.embed.to(x.dtype).T
         else:
             logits = L.dense_apply(self.head, x)
-        return logits.float(), new_caches
+        return logits.float(), new_caches, aux_total
 
 
-def init(cfg: ModelConfig, seed: int, device) -> TransformerLM:
+def _norm_init(cfg: ModelConfig, dtype, device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(scale, bias): ones, and zeros for LayerNorm."""
+    d = cfg.d_model
+    bias = torch.zeros((d,), dtype=dtype, device=device) if cfg.norm == "layer" else None
+    return torch.ones((d,), dtype=dtype, device=device), bias
+
+
+def init(cfg: ModelConfig, seed: int, device, ffn=None) -> TransformerLM:
     """Seeded random init with the JAX package's scales (not its numbers:
-    ``torch.Generator`` and ``jax.random`` draw different streams)."""
+    ``torch.Generator`` and ``jax.random`` draw different streams).
+    ``ffn(gen, dtype)`` makes a block's MoE FFN (``models/moe.py``); by
+    default each block gets an MLP."""
     check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dtype = getattr(torch, cfg.param_dtype)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ones = lambda: torch.ones((d,), dtype=dtype, device=device)
 
     def dense(d_in, d_out, scale=None):
         return L.dense_init(gen, d_in, d_out, dtype, device, scale)
@@ -98,17 +145,26 @@ def init(cfg: ModelConfig, seed: int, device) -> TransformerLM:
     for _ in range(cfg.n_layers):
         attn = L.Attention(dense(d, h * hd), dense(d, kv * hd), dense(d, kv * hd),
                            dense(h * hd, d, 1.0 / math.sqrt(h * hd)))
-        mlp = L.MLP(dense(d, 2 * cfg.d_ff), dense(cfg.d_ff, d, 1.0 / math.sqrt(cfg.d_ff)))
-        blocks.append(Block(ones(), attn, mlp, ones()))
+        n1, b1 = _norm_init(cfg, dtype, device)
+        n2, b2 = (None, None) if cfg.parallel_blocks else _norm_init(cfg, dtype, device)
+        if ffn is not None:
+            blocks.append(Block(n1, attn, None, n2, norm1_bias=b1, norm2_bias=b2,
+                                moe=ffn(gen, dtype)))
+        else:
+            mlp = L.mlp_init(gen, d, cfg.d_ff, cfg.act_fn, dtype, device)
+            blocks.append(Block(n1, attn, mlp, n2, norm1_bias=b1, norm2_bias=b2))
     head = None if cfg.tie_embeddings else dense(d, cfg.vocab_padded)
-    return TransformerLM(cfg, embed, blocks, ones(), head)
+    nf, bf = _norm_init(cfg, dtype, device)
+    return TransformerLM(cfg, embed, blocks, nf, head, bf)
 
 
 def apply(params: TransformerLM, cfg: ModelConfig, tokens, *, positions=None, caches=None,
           last_only: bool = False):
+    """-> (logits, caches)."""
     if params.cfg != cfg:
         raise ValueError("params were built for another config")
-    return params(tokens, positions=positions, caches=caches, last_only=last_only)
+    logits, caches, _ = params(tokens, positions=positions, caches=caches, last_only=last_only)
+    return logits, caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
@@ -123,7 +179,9 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat
     ``layout="paged"``: per-layer slices of the global block pool
     (``layers.init_paged_kv_cache``), ``batch * ceil(cache_len /
     block_size)`` blocks when ``n_blocks`` is 0; the scheduler attaches the
-    tables per call."""
+    tables per call. Sliding-window configs use the same pool with logical
+    tables (position p always at ``table[p // block_size]``); the scheduler
+    frees entries that fall wholly out of the window."""
     if layout == "paged":
         if n_blocks <= 0:
             n_blocks = batch * -(-cache_len // block_size)
@@ -138,9 +196,11 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat
 
 
 def cache_policies(cfg: ModelConfig):
-    """Every dense block is paged KV (sliding-window policies wait)."""
+    """Every block is paged KV; sliding-window configs get the windowed
+    variant, whose out-of-window blocks the scheduler frees (at most
+    ``ceil(window / block_size) + 1`` live per request in steady state)."""
     from repro_torch.serving.paged_cache import CachePolicy
 
     if cfg.sliding_window:
-        raise NotImplementedError("the windowed_paged cache policy is not ported yet")
+        return [CachePolicy("windowed_paged", window=cfg.sliding_window)] * cfg.n_layers
     return [CachePolicy("paged_kv")] * cfg.n_layers

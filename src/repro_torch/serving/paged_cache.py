@@ -25,18 +25,21 @@ import numpy as np
 import torch
 
 __all__ = ["PagedCacheConfig", "BlockAllocator", "CachePolicy", "attach_tables",
-           "detach_tables", "blocks_needed", "chain_hash", "prefix_seed", "copy_blocks"]
+           "detach_tables", "blocks_needed", "chain_hash", "prefix_seed", "copy_blocks",
+           "release_horizon", "windowed_block_cap"]
 
 _TABLE_KEYS = ("block_tables", "ctx_lens", "token_slots")
 
 
 @dataclasses.dataclass(frozen=True)
 class CachePolicy:
-    """Per-layer cache descriptor; the port serves ``paged_kv`` layers only
-    (``windowed_paged`` and ``recurrent`` wait for their families)."""
+    """Per-layer cache descriptor for the scheduler: ``paged_kv`` keeps every
+    block, ``windowed_paged`` (sliding-window attention, ``window`` > 0)
+    lets the scheduler free blocks wholly out of the window, ``recurrent``
+    holds per-slot state (not ported yet: the ssm and hybrid families)."""
 
     kind: str
-    window: int = 0
+    window: int = 0  # windowed_paged only: the layer's sliding window
 
     def __post_init__(self):
         if self.kind not in ("paged_kv", "windowed_paged", "recurrent"):
@@ -60,6 +63,25 @@ class PagedCacheConfig:
 
 def blocks_needed(n_tokens: int, block_size: int) -> int:
     return -(-n_tokens // block_size)
+
+
+def release_horizon(policies) -> int:
+    """The window W such that blocks wholly below ``prefilled - W + 1`` may
+    be freed, or 0 when nothing may ever be freed. Block ids are shared by
+    every layer's pool, so one ``paged_kv`` layer pins the whole table;
+    otherwise the smallest window over the windowed layers is safe for all
+    of them. A stack with no paged layer holds no blocks (also 0)."""
+    if any(p.kind == "paged_kv" for p in policies):
+        return 0
+    windows = [p.window for p in policies if p.kind == "windowed_paged"]
+    return min(windows) if windows else 0
+
+
+def windowed_block_cap(window: int, block_size: int) -> int:
+    """Steady-state live blocks per request under a window: the window can
+    straddle ``ceil(window / block_size)`` blocks, plus the partly written
+    block the decode head grows into."""
+    return blocks_needed(window, block_size) + 1
 
 
 def prefix_seed(**pool_identity) -> bytes:

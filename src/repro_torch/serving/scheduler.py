@@ -51,7 +51,15 @@ cache-free teacher-forced forward over the deepest decoder's committed
 context (padded to ``cache_len``) gives the shadow probe's logit KL and
 agreements, computed on the host in numpy.
 
-Not ported yet: sliding-window and recurrent cache policies.
+Sliding-window models (the ``windowed_paged`` policy) keep logical block
+tables: position p stays at ``table[p // block_size]``, and after every
+step each request's blocks that lie wholly below ``prefilled - window + 1``
+are freed and left as -1 holes (``_release_windowed``), so a request holds
+at most ``ceil(window / block_size) + 1`` live blocks once its prompt is
+written. The attention kernels and their plain versions clamp a hole to
+block 0, and the window mask hides every key there. Prefix sharing is off
+unless every layer is plain ``paged_kv``. Not ported yet: the recurrent
+cache policy (ssm and hybrid families).
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from repro_torch.serving.paged_cache import (
     chain_hash,
     copy_blocks,
     prefix_seed,
+    release_horizon,
 )
 from repro_torch.serving.speculative import (DraftRunner, greedy_verify, make_packed_fn,
                                               make_probed_packed_fn, rejection_sample)
@@ -138,7 +147,8 @@ class Scheduler:
     bounds context per request, ``block_size`` / ``n_blocks`` size the pool
     (0 -> slots * blocks per request), ``token_budget`` sizes the grid
     (0 -> slots + prefill_chunk), ``seg_width`` packs that many tokens per
-    segment row, ``prefix_cache`` turns on prefix sharing.
+    segment row, ``prefix_cache`` turns on prefix sharing (only when every
+    layer's policy is ``paged_kv``).
 
     ``graph``: None captures the packed step (and a draft's steps) as CUDA
     graphs on CUDA and runs them eagerly on the CPU; False runs them eagerly;
@@ -161,8 +171,11 @@ class Scheduler:
                  graph: bool | None = None, telemetry=None, calib_stats=None,
                  shadow_params=None):
         policies = model.cache_policies()
-        if not all(p.kind == "paged_kv" for p in policies):
-            raise NotImplementedError("only paged_kv cache policies are ported")
+        if any(p.kind == "recurrent" for p in policies):
+            raise NotImplementedError("the recurrent cache policy is not ported yet")
+        # blocks wholly below prefilled - W + 1 are freed after every step;
+        # 0 (never) whenever a full-attention layer needs every block
+        self.release_window = release_horizon(policies)
         self.model, self.params, self.sc, self.slots = model, params, sc, slots
         self.device = next(params.parameters()).device
         if graph is None:
@@ -213,7 +226,10 @@ class Scheduler:
                                        quantized=sc.kv_quant, layout="paged",
                                        block_size=sc.block_size, n_blocks=n_blocks,
                                        device=self.device)
-        self.allocator = BlockAllocator(n_blocks, prefix_cache=sc.prefix_cache, telemetry=tel)
+        # prefix sharing aliases blocks, which only composes with layers that
+        # keep every block: a windowed layer would free a shared block
+        prefix_on = sc.prefix_cache and all(p.kind == "paged_kv" for p in policies)
+        self.allocator = BlockAllocator(n_blocks, prefix_cache=prefix_on, telemetry=tel)
         self._hash_seed = prefix_seed(
             family=model.cfg.family, n_layers=model.cfg.n_layers,
             n_kv_heads=model.cfg.n_kv_heads, head_dim=model.cfg.head_dim,
@@ -593,8 +609,10 @@ class Scheduler:
                 r.generated.append(r.next_token)
                 tel.first_token(r.rid)
         for r in self._running:
-            self._register_full_blocks(r)
-            self._g_live_peak.set_max(len(r.blocks))
+            self._register_full_blocks(r)  # publish before anyone finishes
+            if self.release_window:
+                self._release_windowed(r)
+            self._g_live_peak.set_max(sum(1 for b in r.blocks if b >= 0))
         for r in [r for r in self._running if r.done]:
             self._finish(r, results)
         if probes is not None:
@@ -751,6 +769,19 @@ class Scheduler:
         if len(r.blocks) > keep:
             r.blocks = self.allocator.truncate(r.blocks, keep)
 
+    def _release_windowed(self, r: Request) -> None:
+        """Free the blocks no future query of ``r`` can attend. With window
+        W a query at position q sees keys above q - W, and every future query
+        sits at ``prefilled`` or later, so block j (tokens [j bs, (j + 1) bs))
+        is dead once (j + 1) bs <= prefilled - W + 1. A freed entry stays a
+        -1 hole in the logical table; rollback and growth only touch the
+        tail, never a hole."""
+        drop = max(0, r.prefilled - self.release_window + 1) // self.pcfg.block_size
+        for j in range(min(drop, len(r.blocks))):
+            if r.blocks[j] >= 0:
+                self.allocator.free([r.blocks[j]])
+                r.blocks[j] = -1
+
     def _grow(self, r: Request, n_tokens: int = 1) -> None:
         while blocks_needed(len(r.context) + n_tokens, self.pcfg.block_size) > len(r.blocks):
             got, _ = self._alloc_one(r)
@@ -786,7 +817,9 @@ class Scheduler:
             self.allocator.register(h, r.blocks[j])
 
     def _preempt(self, r: Request) -> None:
-        self.allocator.free(list(reversed(r.blocks)))
+        # tail first, so a cached chain ages out leaf before root; windowed
+        # holes were freed when they were released
+        self.allocator.free([b for b in reversed(r.blocks) if b >= 0])
         r.blocks, r.block_hashes = [], []
         self._slot_free.append(r.slot)
         r.slot = -1
@@ -799,7 +832,7 @@ class Scheduler:
         self.telemetry.request_preempted(r.rid)
 
     def _finish(self, r: Request, results: dict) -> None:
-        self.allocator.free(list(reversed(r.blocks)))
+        self.allocator.free([b for b in reversed(r.blocks) if b >= 0])
         r.blocks, r.block_hashes = [], []
         self._slot_free.append(r.slot)
         r.slot = -1

@@ -176,14 +176,16 @@ class DraftRunner:
     next catch-up or loop before any read can reach them (paged reads stop at
     ``ctx`` and the causal mask). ``reset`` (a new occupant) rewinds to 0: the
     draft replays the whole prompt; it never shares the target's prefix
-    cache."""
+    cache. A sliding-window draft keeps every block of its static tables:
+    the window mask alone bounds what it attends."""
 
     def __init__(self, model, params, *, slots: int, cache_len: int, k: int,
                  block_size: int = 16, cache_dtype="float32", kv_quant: bool = False,
                  token_budget: int = 0, graph: bool | None = None, telemetry=None):
-        if any(p.kind != "paged_kv" for p in model.cache_policies()):
-            raise NotImplementedError("only attention-cache (paged_kv) draft models are "
-                                      "ported; recurrent drafts wait for their families")
+        if any(p.kind == "recurrent" for p in model.cache_policies()):
+            raise NotImplementedError("only attention-cache (paged_kv, windowed_paged) draft "
+                                      "models are ported; recurrent drafts wait for their "
+                                      "families")
         self.model, self.params, self.k, self.slots = model, params, k, slots
         self.device = next(params.parameters()).device
         # headroom: the loop writes up to position n + k for a row whose own

@@ -753,3 +753,151 @@ def test_draft_loop_graph_is_bit_equal_to_eager(dev):
     assert got[True][2] == got[False][2] and got[True][2]["fused_lut_gemm"] > 0
     assert not any(got[True][3].values())
     assert got[True][4] > 0 and got[False][4] is None
+
+
+# ---------------------------------------------------------------------------
+# the kernels at the shapes of the other families (h2o-danube, nemotron,
+# command-r, musicgen, qwen2-moe) and the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,byte", [
+    (72, 2560, 2560, False),   # danube wq, wo
+    (72, 2560, 640, False),    # danube wk, wv
+    (72, 2560, 13824, False),  # danube wi
+    (72, 6912, 2560, True),    # danube wd, W8
+    (72, 24576, 6144, True),   # nemotron wd, W8
+])
+def test_fused_lut_gemm_at_family_shapes(dev, m, k, n, byte):
+    """bf16 activations, the mul compare form: within 2 sqrt(K) u max(|a| @
+    |w|) of the plain version (the scale of two summation orders, below one
+    index flip), bit for bit on exact sums and across two launches."""
+    from repro_torch.core.codebook import boundaries_from_centroids
+    from repro_torch.kernels.lut_gemm import (exact_sum_inputs, fused_lut_gemm,
+                                              fused_lut_gemm_plain)
+    from repro_torch.models.model import _default_codebook
+
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x = (torch.randn((m, k), generator=g, device=dev) * 1.5).to(torch.bfloat16)
+    s = x.float().square().mean(-1, keepdim=True).sqrt()
+    a_book = _default_codebook(4, device=dev)
+    bounds = boundaries_from_centroids(a_book).contiguous()
+    w_book = torch.sort(torch.randn(256 if byte else 16, generator=g, device=dev)).values
+    w = torch.randint(0, 256, (k, n if byte else n // 2), generator=g, device=dev,
+                      dtype=torch.uint8)
+    kw = dict(byte_packed=byte, mul_form=True)
+    y = fused_lut_gemm(x, s, w, bounds, a_book, w_book, **kw)
+    ref = fused_lut_gemm_plain(x, s, w, bounds, a_book, w_book, **kw)
+    assert torch.equal(fused_lut_gemm(x, s, w, bounds, a_book, w_book, **kw), y)
+    w_idx = w.long() if byte else torch.stack([w & 0xF, w >> 4], -1).reshape(k, n).long()
+    a_idx = (x.float()[..., None] >= s[..., None] * bounds).sum(-1)  # the mul form
+    mag = a_book[a_idx].abs() @ w_book[w_idx].abs()
+    bound = 2 * k**0.5 * U32 * mag.max().item()
+    assert (y - ref).abs().max().item() <= bound
+    if k <= 11008:  # above, the bound nears one index flip: exact sums decide
+        assert bound < a_book.diff().min().item() * w_book[w_idx].abs().amax(1).min().item()
+    args = [a.to(dev) for a in exact_sum_inputs(m, k, n, torch.bfloat16, byte, seed=k)]
+    assert torch.equal(fused_lut_gemm(*args, **kw), fused_lut_gemm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("n,k", [(6912, 35), (24576, 123)])
+@pytest.mark.parametrize("kind", ["normal", "specials"])
+def test_topk_at_family_widths(dev, n, k, kind):
+    """Orizuru's k = round(0.005 N) on danube's d_ff and nemotron's."""
+    test_topk_kernel_vs_plain_exact(dev, 72, n, k, kind)
+
+
+@pytest.mark.parametrize("pages", PAGES)
+@pytest.mark.parametrize("hd,grp,kv", [(80, 4, 8), (128, 6, 8), (128, 12, 8), (64, 1, 32),
+                                       (128, 1, 16)])
+def test_paged_attn_family_heads(dev, pages, hd, grp, kv):
+    """danube's head_dim 80 (the 128 class with masked lanes), nemotron's and
+    command-r's 128 with G = 6 and 12, musicgen's G = 1 over 32 KV heads
+    and qwen2-moe's G = 1 at 128."""
+    ctx = [1024, 1, 300, 0, 777, 16, 513, 900]
+    args, vmax = _split_attn(dev, pages, 8, 1, ctx, max_blk=64, hd=hd, grp=grp, kv=kv,
+                             seed=hd + grp)
+    _check_split(pages, args, vmax)
+
+
+@pytest.mark.parametrize("pages", PAGES)
+def test_paged_attn_windowed_tables_with_holes(dev, pages):
+    """Decode rows past a 4096 window (ctx 4200-4800, head_dim 80) whose
+    logical tables hold -1 for every page wholly below the window, as the
+    scheduler's release leaves them: within the tolerance of the plain
+    version, and bit-equal to the same call on the full tables (the window
+    mask hides every key of a hole, and the splits that cover only holes
+    merge as empty)."""
+    ctx = [4200, 4800, 4096 + 17, 4500, 4799, 4111]
+    args, vmax = _split_attn(dev, pages, 6, 1, ctx, max_blk=512, hd=80, seed=5)
+    tables, ctx_t, qpos = args[-3:]
+    holed = tables.clone()
+    ar = torch.arange(tables.shape[1], device=dev)
+    holed[ar[None, :] < ((qpos[:, :1] - 4096 + 1) // 16)] = -1
+    assert (holed < 0).sum() > (tables < 0).sum()
+    with_holes = (*args[:-3], holed, ctx_t, qpos)
+    _check_split(pages, with_holes, vmax, window=4096)
+    from repro_torch.kernels.paged_attn import paged_attn_bf16, paged_attn_int4
+
+    kern = paged_attn_int4 if pages == "int4" else paged_attn_bf16
+    assert torch.equal(kern(*with_holes, window=4096), kern(*args, window=4096))
+
+
+def test_moe_layer_is_deterministic_and_graph_equal(dev):
+    """granite-moe's layer (smoke widths, 72 rows: 24 dispatch groups) on
+    the card: two launches bit-equal (each token sums its k expert outputs
+    in a fixed order, no atomics), equal to a CUDA graph replay of itself,
+    and within 1e-5 of the range of the CPU's result."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build as build_model
+
+    cfg = get_smoke_config("granite_moe_3b_a800m")
+    params = build_model(cfg).init(seed=3, device=dev)
+    mod = params.blocks[0].moe
+    x = torch.randn((72, 1, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    with torch.inference_mode():
+        out, aux = moe.moe_apply(mod, x, cfg)
+        again, _ = moe.moe_apply(mod, x, cfg)
+        assert torch.equal(out, again)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            moe.moe_apply(mod, x, cfg)  # warm-up off the default stream
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out, g_aux = moe.moe_apply(mod, x, cfg)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_out, out) and torch.equal(g_aux, aux)
+        cpu, _ = moe.moe_apply(mod.to("cpu"), x.cpu(), cfg)
+    ref = cpu.abs().max().item()
+    assert (out.cpu() - cpu).abs().max().item() <= 1e-5 * ref
+
+
+def test_windowed_graph_step_is_bit_equal_to_eager(dev):
+    """h2o-danube's smoke config (window 16, block 8) on the fused route:
+    packed steps after the release left holes, graph replays against eager
+    steps, logits and pools bit for bit."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.qlinear import QLinearConfig
+    from repro_torch.core.quantspec import QuantSpec
+    from repro_torch.models.model import build as build_model
+    from repro_torch.models.model import quantize_model
+    from repro_torch.serving.engine import ServeConfig
+
+    model = build_model(get_smoke_config("h2o_danube_1_8b"))
+    spec = QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.05),
+                     rules=[("mlp/wd", {"w_bits": 8})], kv_bits=4, kv_dtype="float32")
+    qp = quantize_model(model, model.init(seed=0, device=dev), spec)
+    sc = ServeConfig.from_spec(spec, cache_len=64, block_size=8, prefill_chunk=8)
+    g_sched, g_logits, g_pools, g_counts = _run_steps(model, qp, sc, graph=True, n_steps=10)
+    _, e_logits, e_pools, e_counts = _run_steps(model, qp, sc, graph=False, n_steps=10)
+    assert any(b < 0 for r in g_sched._running for b in r.blocks)  # holes exist
+    for g, e in zip(g_logits, e_logits):
+        assert torch.equal(g, e)
+    for g, e in zip(g_pools, e_pools):
+        for k in g:
+            assert torch.equal(g[k], e[k]), k
+    assert g_counts == e_counts and not any(g_counts[1].values())

@@ -119,6 +119,24 @@ def test_fused_lut_gemm_exact_sum_inputs(m, k, nn, byte, x_dtype):
     assert (wrong != got).any(1).sum() >= m // 2
 
 
+@pytest.mark.parametrize("k,byte", [(24576, True), (29127, False)])
+def test_exact_sum_inputs_stay_exact_at_wide_k(k, byte):
+    """Up to K = 29127 (nemotron's wd has K = 24576) every partial sum of
+    ``exact_sum_inputs`` is a multiple of 1/64 below 2^24 of them: the plain
+    version's float32 sum equals the float64 one, and past the limit the
+    helper refuses."""
+    from repro_torch.kernels.lut_gemm import exact_sum_inputs
+
+    x, s, w, bounds, a_book, w_book = exact_sum_inputs(3, k, 8, torch.bfloat16, byte, seed=1)
+    got = fused_lut_gemm_plain(x, s, w, bounds, a_book, w_book, byte_packed=byte,
+                               mul_form=True)
+    a_idx = (x.float()[..., None] >= s[..., None] * bounds).sum(-1)
+    w_idx = w.long() if byte else torch.stack([w & 15, w >> 4], -1).reshape(k, -1).long()
+    assert torch.equal(got.double(), a_book.double()[a_idx] @ w_book.double()[w_idx])
+    with pytest.raises(AssertionError, match="exact"):
+        exact_sum_inputs(1, 29128, 8, torch.float32, byte)
+
+
 def test_lut_gemm_fused_wrapper_scaled_matches_jax():
     """ops.lut_gemm_fused (scales applied) vs the JAX wrapper on the same
     weight: the per-token scale may differ by an ulp between the packages,
