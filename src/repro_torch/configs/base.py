@@ -74,9 +74,18 @@ class ModelConfig:
         """Vocab padded to a multiple of 128 (the embedding table's rows)."""
         return (self.vocab_size + 127) // 128 * 128
 
+    def expanded_pattern(self) -> tuple[str, ...]:
+        """The block kind of every layer: ``block_pattern`` repeated to
+        ``n_layers`` (the hybrid family's stack; empty otherwise)."""
+        if not self.block_pattern:
+            return ()
+        reps = -(-self.n_layers // len(self.block_pattern))
+        return (self.block_pattern * reps)[: self.n_layers]
+
 
 _ARCHS = ["llama3_2_1b", "oasis_7b", "h2o_danube_1_8b", "nemotron_4_15b",
-          "command_r_plus_104b", "musicgen_large", "granite_moe_3b_a800m", "qwen2_moe_a2_7b"]
+          "command_r_plus_104b", "musicgen_large", "granite_moe_3b_a800m", "qwen2_moe_a2_7b",
+          "falcon_mamba_7b", "recurrentgemma_2b"]
 
 
 def list_archs() -> list[str]:

@@ -56,6 +56,10 @@ __all__ = [
     "MLP",
     "init_kv_cache",
     "init_paged_kv_cache",
+    "state_zeros",
+    "rows_with_scratch",
+    "state_quantize",
+    "state_dequantize",
     "attention_apply",
     "act_apply",
     "mlp_apply",
@@ -327,6 +331,44 @@ def _kv_dequantize(packed: torch.Tensor, scale: torch.Tensor, codebook: torch.Te
     return (codebook[unpack_int4(packed).long()] * scale).to(dtype)
 
 
+# ---------------------------------------------------------------------------
+# recurrent state (the ssm and hybrid families)
+# ---------------------------------------------------------------------------
+
+def state_zeros(rows: int, shape: tuple, dtype, device) -> torch.Tensor:
+    """A zero state pool of ``rows`` slots: the first ``rows`` rows of a
+    storage of ``rows + 1``. The row after them is the scratch slot where a
+    packed step sends the states of rows with no valid cell
+    (:func:`rows_with_scratch`), as JAX drops them; no slot id names it."""
+    return torch.zeros((rows + 1, *shape), dtype=dtype, device=device)[:rows]
+
+
+def rows_with_scratch(pool: torch.Tensor) -> torch.Tensor:
+    """``pool`` (rows, ...) as ``rows + 1`` rows: its own, then the scratch
+    slot that lies past them in their storage (:func:`state_zeros`)."""
+    rows = pool.shape[0]
+    row = math.prod(pool.shape[1:])
+    held = pool.untyped_storage().nbytes() // pool.element_size() - pool.storage_offset()
+    if not pool.is_contiguous() or held < (rows + 1) * row:
+        raise ValueError("a state pool needs the scratch slot after its rows: make it "
+                         "with state_zeros")
+    return pool.as_strided((rows + 1, *pool.shape[1:]), pool.stride())
+
+
+def state_quantize(x: torch.Tensor, codebook: torch.Tensor):
+    """Recurrent-state int4 quantization (Mamba ``h`` (B, di, N), RG-LRU
+    ``h`` (B, di)): per-vector RMS scale over the last dim and K-Means
+    boundary assignment, the KV pool's format. Returns (packed idx uint8,
+    scale float32); the last dim must be even."""
+    return _kv_quantize(x, codebook)
+
+
+def state_dequantize(packed: torch.Tensor, scale: torch.Tensor,
+                     codebook: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`state_quantize`; the recurrence runs in float32."""
+    return _kv_dequantize(packed, scale, codebook, torch.float32)
+
+
 def _cache_write(cache: dict, k, v, positions: torch.Tensor) -> dict:
     """Store the last ``n_w = min(S, C)`` tokens in their ring slots, in
     place: position ``p`` lives in slot ``p % C``. One ``index_copy_`` of a
@@ -481,8 +523,10 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, act_fn: str, dtype, device
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
-               scale: float | None = None) -> Dense:
-    """Seeded normal init, ``1/sqrt(d_in)`` by default (the JAX scheme)."""
+               scale: float | None = None, bias: bool = False) -> Dense:
+    """Seeded normal init, ``1/sqrt(d_in)`` by default (the JAX scheme);
+    ``bias`` adds a zero bias."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, device=device) * s
-    return Dense(w.to(dtype))
+    b = torch.zeros((d_out,), dtype=dtype, device=device) if bias else None
+    return Dense(w.to(dtype), b)

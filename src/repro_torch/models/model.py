@@ -6,8 +6,9 @@
     qparams = quantize_model(model, params, spec)     # Dense -> QLinear modules
 
 ``params`` is the model's ``nn.Module``; ``model.apply`` calls the family's
-module (``transformer`` for dense and audio, ``moe`` for moe; ssm, hybrid
-and vlm are not ported yet) and wraps the result in :class:`ModelOutput`,
+module (``transformer`` for dense and audio, ``moe`` for moe, ``mamba`` for
+ssm, ``rglru`` for hybrid; vlm is not ported yet) and wraps the result in
+:class:`ModelOutput`,
 with the MoE aux loss. Quantization without calibration data
 uses the structural Gaussian activation codebook, carried bit-equal to the
 JAX one (``gaussian_codebooks.py``). Calibration is not ported yet.
@@ -29,7 +30,7 @@ from repro_torch.core.quantize import QuantizedWeight, quantize_weight
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import moe, transformer
+from repro_torch.models import mamba, moe, rglru, transformer
 from repro_torch.models.gaussian_codebooks import GAUSSIAN_CENTROIDS
 
 __all__ = ["Model", "ModelOutput", "build", "head_matrix", "quantize_model",
@@ -38,11 +39,13 @@ __all__ = ["Model", "ModelOutput", "build", "head_matrix", "quantize_model",
 # the paper-quantizable projections; the router, the shared experts' gate,
 # the head and the embedding stay float whatever the spec says (as in JAX),
 # and so do the raw MoE expert arrays, which are not projections
-_QUANT_KEYS = {"wq", "wk", "wv", "wo", "wi", "wd"}
+_QUANT_KEYS = {"wq", "wk", "wv", "wo", "wi", "wd", "in_proj", "x_proj", "dt_proj", "out_proj",
+               "lin_y", "lin_x", "lin_out", "w_a", "w_x"}
 _SKIP_KEYS = {"router", "head", "embed", "shared_gate"}
 
-# ssm, hybrid and vlm are not ported yet (transformer.check_ported raises)
-_FAMILY_MODULES = {"dense": transformer, "audio": transformer, "moe": moe}
+# vlm is not ported yet (transformer.check_ported raises)
+_FAMILY_MODULES = {"dense": transformer, "audio": transformer, "moe": moe, "ssm": mamba,
+                   "hybrid": rglru}
 
 
 @dataclasses.dataclass
@@ -198,17 +201,39 @@ def _ffn(bp: dict) -> dict:
     return {"moe": moe.MoE(_proj(m["router"]), m["wi"], m["wd"], shared, gate)}
 
 
+def _mamba_block(bp: dict) -> mamba.MambaBlock:
+    n, nb = _norm(bp["norm"])
+    return mamba.MambaBlock(n, _proj(bp["in_proj"]), bp["conv_w"], bp["conv_b"],
+                            _proj(bp["x_proj"]), _proj(bp["dt_proj"]), bp["dt_bias"],
+                            bp["A_log"], bp["D"], _proj(bp["out_proj"]), nb)
+
+
+def _rec_block(bp: dict) -> rglru.RecBlock:
+    (n1, b1), (n2, b2) = _norm(bp["norm1"]), _norm(bp["norm2"])
+    return rglru.RecBlock(n1, _proj(bp["lin_y"]), _proj(bp["lin_x"]), bp["conv_w"],
+                          bp["conv_b"], _proj(bp["w_a"]), _proj(bp["w_x"]), bp["lambda"],
+                          _proj(bp["lin_out"]), n2, _ffn(bp)["mlp"], b1, b2)
+
+
 def params_from_tree(tree: dict, cfg: ModelConfig) -> transformer.TransformerLM:
     """Build the port's model from a JAX-layout tree of torch tensors and
     ``QLinearParams`` (``blocks`` scan-stacked with a leading layer axis, or
     a list of per-layer dicts): LayerNorm ``bias`` leaves, parallel blocks
-    without ``norm2``, and the moe subtree (``router``, the raw expert
-    arrays ``wi`` / ``wd``, ``shared``, ``shared_gate``) as JAX stores them."""
+    without ``norm2``, the moe subtree (``router``, the raw expert arrays
+    ``wi`` / ``wd``, ``shared``, ``shared_gate``), Mamba blocks (``A_log``,
+    ``D``, ``dt_bias``, the conv) and the hybrid's RG-LRU blocks
+    (``lambda``, the conv, the gates) as JAX stores them."""
     blocks_in = tree["blocks"]
     stacked = isinstance(blocks_in, dict)
     blocks = []
     for i in range(cfg.n_layers):
         bp = _layer(blocks_in, i) if stacked else blocks_in[i]
+        if cfg.family == "ssm":
+            blocks.append(_mamba_block(bp))
+            continue
+        if "lin_y" in bp:
+            blocks.append(_rec_block(bp))
+            continue
         a = bp["attn"]
         attn = L.Attention(_proj(a["wq"]), _proj(a["wk"]), _proj(a["wv"]), _proj(a["wo"]))
         n1, b1 = _norm(bp["norm1"])
@@ -231,7 +256,19 @@ def _norm_tree(scale: nn.Parameter, bias: nn.Parameter | None) -> dict:
     return {"scale": scale.data} if bias is None else {"scale": scale.data, "bias": bias.data}
 
 
-def _block_tree(b: transformer.Block) -> dict:
+def _block_tree(b: nn.Module) -> dict:
+    if isinstance(b, mamba.MambaBlock):
+        return {"norm": _norm_tree(b.norm, b.norm_bias),
+                **{k: _proj_tree(getattr(b, k)) for k in ("in_proj", "x_proj", "dt_proj",
+                                                          "out_proj")},
+                **{k: getattr(b, k).data for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D")}}
+    if isinstance(b, rglru.RecBlock):
+        return {"norm1": _norm_tree(b.norm1, b.norm1_bias),
+                "norm2": _norm_tree(b.norm2, b.norm2_bias),
+                **{k: _proj_tree(getattr(b, k)) for k in ("lin_y", "lin_x", "w_a", "w_x",
+                                                          "lin_out")},
+                "conv_w": b.conv_w.data, "conv_b": b.conv_b.data, "lambda": b.lam.data,
+                "mlp": {k: _proj_tree(getattr(b.mlp, k)) for k in ("wi", "wd")}}
     out = {"norm1": _norm_tree(b.norm1, b.norm1_bias),
            "attn": {k: _proj_tree(getattr(b.attn, k)) for k in ("wq", "wk", "wv", "wo")}}
     if b.moe is not None:

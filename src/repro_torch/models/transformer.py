@@ -3,7 +3,9 @@
 Covers llama3.2-1b, h2o-danube (sliding-window attention), command-r-plus
 (parallel attention + FFN blocks, LayerNorm), nemotron-4 (squared ReLU,
 LayerNorm) and the musicgen backbone (sinusoidal positions, plain GeLU);
-``models/moe.py`` builds its blocks on the same stack.
+``models/moe.py`` builds its blocks on the same stack, and
+``TransformerLM`` is also the container of the Mamba (``models/mamba.py``)
+and RG-LRU hybrid (``models/rglru.py``) stacks.
 
 ``TransformerLM`` holds its layers in an ``nn.ModuleList`` where the JAX
 package scans over stacked parameters. The serving caches (ring buffers or
@@ -23,7 +25,7 @@ from repro_torch.models import layers as L
 __all__ = ["Block", "TransformerLM", "check_ported", "init", "apply", "init_caches",
            "cache_policies"]
 
-PORTED_FAMILIES = ("dense", "audio", "moe")
+PORTED_FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid")
 
 
 def _param(t: torch.Tensor | None) -> nn.Parameter | None:
@@ -61,12 +63,12 @@ class Block(nn.Module):
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The dense, audio and MoE families are ported; ssm, hybrid and vlm
-    are not yet."""
+    """The dense, audio, MoE, ssm and hybrid families are ported; vlm is
+    not yet."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"config {cfg.arch_id}: the {cfg.family} family is not "
                                   f"ported yet (ported: {', '.join(PORTED_FAMILIES)})")
-    if cfg.norm not in ("rms", "layer") or cfg.pos_embed not in ("rope", "sinusoidal") \
+    if cfg.norm not in ("rms", "layer") or cfg.pos_embed not in ("rope", "sinusoidal", "none") \
             or cfg.act_fn not in (*L.GATED_ACTS, "relu2", "gelu_plain"):
         raise NotImplementedError(f"config {cfg.arch_id}: norm {cfg.norm!r}, positions "
                                   f"{cfg.pos_embed!r} or activation {cfg.act_fn!r} is not "
@@ -79,7 +81,7 @@ class TransformerLM(nn.Module):
     """Embedding (plus sinusoidal positions when the config asks), ``n_layers``
     blocks, final norm and (tied or own) head."""
 
-    def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks: list[Block],
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks: list[nn.Module],
                  norm_f: torch.Tensor, head: nn.Module | None = None,
                  norm_f_bias: torch.Tensor | None = None):
         super().__init__()

@@ -16,7 +16,10 @@
   On the card the decode step is one captured CUDA graph per batch size,
   JAX's ``jax.jit(make_serve_step(...))``: the ring caches are allocated
   once per engine at ``batch_slots`` rows and reset in place per batch, and
-  the token and position live in static device buffers.
+  the token and position live in static device buffers. Recurrent layers'
+  state (Mamba, RG-LRU) is zeroed per batch and takes no ``pad_len``: a
+  left-padded row's pad tokens enter its state, as in JAX (the fixed-slot
+  engine is exact for them only on equal-length prompts).
 
 ``graph`` (not a ``ServeConfig`` field: it changes how the steps run, not
 what they compute): None runs them as CUDA graphs on the card and eagerly
@@ -45,6 +48,7 @@ import torch
 
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.serving.graph_step import GraphStep
+from repro_torch.serving.paged_cache import zero_state_slot
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.speculative import SpeculativeConfig, load_draft
 from repro_torch.serving.telemetry import make_telemetry
@@ -116,7 +120,8 @@ def make_serve_step(model, sc: ServeConfig) -> Callable:
 
 def _attach_pad_lens(caches: list[dict], pad_lens: torch.Tensor) -> list[dict]:
     """Every ring cache dict (recognised by ``slot_pos``) with the per-row
-    ``pad_len`` (B,) that masks a left-padded prompt's pad keys."""
+    ``pad_len`` (B,) that masks a left-padded prompt's pad keys; recurrent
+    state dicts pass through."""
     return [c | {"pad_len": pad_lens} if "slot_pos" in c else c for c in caches]
 
 
@@ -137,7 +142,13 @@ class ServingEngine:
         self.model, self.params, self.sc, self.slots = model, params, sc, batch_slots
         self.device = next(params.parameters()).device
         self.telemetry = make_telemetry(sc.telemetry)
-        self.paged = sc.paged and model.cache_policies() is not None
+        policies = model.cache_policies()
+        self.paged = sc.paged and policies is not None
+        if self.paged and sc.speculative is not None and sc.seg_width < sc.speculative.k + 1 \
+                and any(p.kind == "recurrent" for p in policies):
+            # a recurrent verify segment (k + 1 cells) must fit in one row
+            sc = dataclasses.replace(sc, seg_width=sc.speculative.k + 1)
+            self.sc = sc
         if self.paged:
             if sc.speculative is not None and draft is None:
                 if sc.speculative.draft_artifact is None:
@@ -224,18 +235,22 @@ class ServingEngine:
     # ------------------------------------------------------ fixed-slot engine
     def _ring_caches(self, pads: list[int]) -> list[dict]:
         """The engine's ring caches for a batch of ``len(pads)`` rows: views
-        of the first rows, every slot emptied and ``pad_len`` set, in place
-        (a captured decode step holds their addresses). Slots a batch left
-        behind are masked by ``slot_pos`` until overwritten."""
+        of the first rows, every slot emptied, recurrent state zeroed and
+        ``pad_len`` set, in place (a captured decode step holds their
+        addresses). Slots a batch left behind are masked by ``slot_pos``
+        until overwritten."""
         sc, b = self.sc, len(pads)
         if self._ring is None:
             self._ring = self.model.init_caches(self.slots, sc.cache_len, sc.cache_dtype,
                                                 quantized=sc.kv_quant, layout="ring",
                                                 device=self.device)
         for layer in self._ring:
-            layer["slot_pos"].fill_(-1)
+            if "slot_pos" in layer:
+                layer["slot_pos"].fill_(-1)
+        zero_state_slot(self._ring, slice(None))
         self._pad_len[:b].copy_(torch.tensor(pads, dtype=torch.int32))
-        rows = [{k: v if k in ("slot_pos", "kv_codebook") else v[:b] for k, v in layer.items()}
+        shared = ("slot_pos", "kv_codebook", "state_codebook")
+        rows = [{k: v if k in shared else v[:b] for k, v in layer.items()}
                 for layer in self._ring]
         return _attach_pad_lens(rows, self._pad_len[:b])
 

@@ -18,11 +18,14 @@ Capture, in order:
 1. a warm-up run of the step on the capture stream, over the ``idle``
    inputs the caller passes. They must leave the caches as the first replay
    finds them: inputs with no valid cell (no table entry, every position -1)
-   send a paged step's writes to the scratch blocks; a ring step is warmed
-   up on its first inputs, whose writes the first replay repeats bit for
-   bit. The warm-up builds and binds the kernels, sets their shared-memory
-   attributes and makes the stream's split-kernel tickets
-   (``kernels/build.py::tickets``) outside the graph's memory pool;
+   send a paged step's writes to the scratch blocks and its recurrent
+   states to the scratch slot; a ring step is warmed up on its first
+   inputs, whose KV writes the first replay repeats bit for bit. Recurrent
+   state is not rewritten so (a second run would advance it again), so the
+   warm-up puts back every state it found. The warm-up builds and binds the
+   kernels, sets their shared-memory attributes and makes the stream's
+   split-kernel tickets (``kernels/build.py::tickets``) outside the graph's
+   memory pool;
 2. the capture itself, which runs the Python but no kernel;
 3. the first replay, which does the first step's work.
 
@@ -44,6 +47,7 @@ import torch
 
 from repro_torch.core import kernel_routing as kr
 from repro_torch.kernels import build
+from repro_torch.serving.paged_cache import restore_state, snapshot_state
 
 __all__ = ["GraphStep", "StepCounts", "StepInputs", "packed_idle", "pool_ptrs"]
 
@@ -153,10 +157,12 @@ class GraphStep:
         if self.graph is not None:
             return
         t0 = time.perf_counter()
+        states = snapshot_state(pools)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with StepCounts().record(), torch.cuda.stream(self.stream):
             self.fn(self.params, pools, *self.idle)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        restore_state(pools, states)  # the warm-up leaves no state behind
         graph = torch.cuda.CUDAGraph()
         with self.counts.record(), _no_gc(), torch.cuda.graph(graph, stream=self.stream):
             out_pools, self.out = self.fn(self.params, pools, *self.inputs)

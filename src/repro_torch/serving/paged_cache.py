@@ -13,6 +13,12 @@ p % block_size)``. Tables and context lengths are attached per call
 The allocator is the JAX package's, line for line: refcounted blocks, a
 chain-hash prefix registry whose refcount-0 blocks park in an LRU and are
 evicted only when ``alloc`` runs dry, and ``truncate`` for rollback.
+
+Recurrent layers (Mamba, RG-LRU) hold slot-major state instead of pages:
+``h`` or ``h_idx`` / ``h_scale``, and ``conv`` (``_STATE_KEYS``). The
+helpers below zero a slot on admission, snapshot and restore slots for the
+draft's rollback, and split a packed step's ``*_steps`` transients from the
+pools; every one writes in place and passes paged layers through.
 """
 
 from __future__ import annotations
@@ -26,9 +32,15 @@ import torch
 
 __all__ = ["PagedCacheConfig", "BlockAllocator", "CachePolicy", "attach_tables",
            "detach_tables", "blocks_needed", "chain_hash", "prefix_seed", "copy_blocks",
-           "release_horizon", "windowed_block_cap"]
+           "release_horizon", "windowed_block_cap", "recurrent_state_keys", "zero_state_slot",
+           "snapshot_state", "restore_state", "restore_state_slot", "split_step_extras"]
 
 _TABLE_KEYS = ("block_tables", "ctx_lens", "token_slots")
+
+# per-slot recurrent state (mamba / RG-LRU): what the scheduler zeroes on
+# (re-)admission and the draft snapshots and restores on rollback; the
+# static "state_codebook" is not state
+_STATE_KEYS = ("h", "conv", "h_idx", "h_scale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +48,9 @@ class CachePolicy:
     """Per-layer cache descriptor for the scheduler: ``paged_kv`` keeps every
     block, ``windowed_paged`` (sliding-window attention, ``window`` > 0)
     lets the scheduler free blocks wholly out of the window, ``recurrent``
-    holds per-slot state (not ported yet: the ssm and hybrid families)."""
+    (Mamba, RG-LRU) costs no blocks and pins one state slot per request;
+    speculation composes through the packed step's per-cell state
+    trajectories and a corrective commit, prefix sharing does not apply."""
 
     kind: str
     window: int = 0  # windowed_paged only: the layer's sliding window
@@ -229,12 +243,66 @@ class BlockAllocator:
             self._c_evict.add()
 
 
+def recurrent_state_keys(layer: dict) -> list[str]:
+    """The per-slot state arrays of one cache layer (none for a paged
+    layer, which makes the helpers below pass it through)."""
+    return [k for k in _STATE_KEYS if k in layer]
+
+
+def zero_state_slot(pools: list[dict], slot: int) -> list[dict]:
+    """Zero one slot's recurrent state in every layer, in place (a new or
+    re-admitted occupant replays its context from position 0)."""
+    for layer in pools:
+        for k in recurrent_state_keys(layer):
+            layer[k][slot].zero_()
+    return pools
+
+
+def snapshot_state(pools: list[dict], into: list[dict] | None = None) -> list[dict]:
+    """A copy of every layer's recurrent state: into the tensors of an
+    earlier snapshot ``into`` (made once, then refilled), or new ones."""
+    if into is None:
+        return [{k: layer[k].clone() for k in recurrent_state_keys(layer)} for layer in pools]
+    for layer, snap in zip(pools, into):
+        for k, v in snap.items():
+            v.copy_(layer[k])
+    return into
+
+
+def restore_state(pools: list[dict], snapshot: list[dict]) -> list[dict]:
+    """Copy a whole :func:`snapshot_state` back into ``pools``, in place."""
+    for layer, snap in zip(pools, snapshot):
+        for k, v in snap.items():
+            layer[k].copy_(v)
+    return pools
+
+
+def restore_state_slot(pools: list[dict], snapshot: list[dict], slot: int) -> list[dict]:
+    """Copy one slot's recurrent state from ``snapshot`` back into
+    ``pools``, in place: the draft runner's speculative rollback."""
+    for layer, snap in zip(pools, snapshot):
+        for k in recurrent_state_keys(layer):
+            layer[k][slot].copy_(snap[k][slot])
+    return pools
+
+
+def split_step_extras(caches: list[dict]) -> tuple[list[dict], list[dict]]:
+    """A packed step's returned caches -> (persistent pools, per-layer
+    ``*_steps`` transients). Recurrent layers in the packed layout return
+    their state after each cell besides the state they stored; the
+    scheduler reads them only for the corrective commit after a partly
+    accepted verify row, so they never persist."""
+    pools = [{k: v for k, v in layer.items() if not k.endswith("_steps")} for layer in caches]
+    extras = [{k: v for k, v in layer.items() if k.endswith("_steps")} for layer in caches]
+    return pools, extras
+
+
 def copy_blocks(pools: list[dict], src, dst) -> list[dict]:
     """Copy-on-write primitive: pool rows ``src[i]`` overwrite rows ``dst[i]``
     in every layer's ``pages_*`` arrays, in place (the tensors stay the same,
     so a captured step's addresses stay valid). The two index tensors are
     made once per call."""
-    dev = next(v.device for k, v in pools[0].items() if k.startswith("pages_"))
+    dev = next(v.device for layer in pools for k, v in layer.items() if k.startswith("pages_"))
     s = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
     t = torch.as_tensor(np.asarray(dst), dtype=torch.long, device=dev)
     for layer in pools:

@@ -58,8 +58,16 @@ are freed and left as -1 holes (``_release_windowed``), so a request holds
 at most ``ceil(window / block_size) + 1`` live blocks once its prompt is
 written. The attention kernels and their plain versions clamp a hole to
 block 0, and the window mask hides every key there. Prefix sharing is off
-unless every layer is plain ``paged_kv``. Not ported yet: the recurrent
-cache policy (ssm and hybrid families).
+unless every layer is plain ``paged_kv``.
+
+Recurrent layers (the ``recurrent`` policy: Mamba, RG-LRU) cost no blocks
+and pin their slot's state, which is zeroed on admission. Their state is
+gathered and stored once per row, so a slot gets at most one row per step:
+its prefill chunk is capped at ``seg_width`` tokens, and a verify segment
+must fit one row (the engine widens ``seg_width`` to ``k + 1``). The step
+stores each row's state after its last cell; when verification accepts
+fewer cells, the corrective commit copies the state after the last
+consumed cell from the step's ``*_steps`` transients over the slot.
 """
 
 from __future__ import annotations
@@ -81,6 +89,7 @@ from repro_torch.serving.paged_cache import (
     copy_blocks,
     prefix_seed,
     release_horizon,
+    zero_state_slot,
 )
 from repro_torch.serving.speculative import (DraftRunner, greedy_verify, make_packed_fn,
                                               make_probed_packed_fn, rejection_sample)
@@ -171,10 +180,11 @@ class Scheduler:
                  graph: bool | None = None, telemetry=None, calib_stats=None,
                  shadow_params=None):
         policies = model.cache_policies()
-        if any(p.kind == "recurrent" for p in policies):
-            raise NotImplementedError("the recurrent cache policy is not ported yet")
-        # blocks wholly below prefilled - W + 1 are freed after every step;
-        # 0 (never) whenever a full-attention layer needs every block
+        # paged layers cost blocks; recurrent layers cost none but pin their
+        # slot's state. Blocks wholly below prefilled - W + 1 are freed after
+        # every step; 0 (never) whenever a full-attention layer needs every block
+        self._has_paged = any(p.kind in ("paged_kv", "windowed_paged") for p in policies)
+        self._rec = any(p.kind == "recurrent" for p in policies)
         self.release_window = release_horizon(policies)
         self.model, self.params, self.sc, self.slots = model, params, sc, slots
         self.device = next(params.parameters()).device
@@ -216,6 +226,10 @@ class Scheduler:
             raise ValueError(f"token_budget {base} gives {rows} segment rows of width "
                              f"{self.seg_width} but decode reservation needs "
                              f"{slots * self._dec_rows} (slots x ceil((k+1)/seg_width))")
+        if self._rec and self._dec_rows > 1:
+            raise ValueError("recurrent layers gather and store state by slot, so a verify "
+                             f"segment must fit in one grid row: raise seg_width to >= k+1 = "
+                             f"{seg_len} (got {self.seg_width})")
         self.rows = rows
         self.token_budget = rows * self.seg_width
         max_blk = blocks_needed(sc.cache_len, sc.block_size)
@@ -288,7 +302,7 @@ class Scheduler:
         self._g_live_peak = tel.gauge(
             "serving_peak_live_blocks_per_seq",
             help="high-water live (non-freed) blocks held by any one request")
-        self._packed_fn = make_packed_fn(model)
+        self._packed_fn = make_packed_fn(model, extras=True)
         self._in = StepInputs(((slots, max_blk), (rows,), (rows, self.seg_width), (rows,),
                                (rows, self.seg_width)), self.device)
         self.graph = (GraphStep(self._packed_fn, params, self.pools, self._in.dev,
@@ -303,7 +317,7 @@ class Scheduler:
         if tel.quality:
             from repro_torch.core import numerics as nx
 
-            self._probed_fn = make_probed_packed_fn(model)
+            self._probed_fn = make_probed_packed_fn(model, extras=True)
             self._probe_layout: list[tuple[str, tuple[int, ...]]] = []
             if graph:
                 self.probe_graph = GraphStep(self._probe_step, params, self.pools,
@@ -393,7 +407,7 @@ class Scheduler:
             return True
         if self._queue and not admitted:
             r = self._queue[0]
-            need = blocks_needed(len(r.context) + 1, self.pcfg.block_size)
+            need = self._blocks_for(len(r.context) + 1)
             raise RuntimeError(
                 f"request {r.rid} needs {need} blocks (context + first decode); "
                 f"pool has {self.allocator.n_free}/{self.pcfg.n_blocks} free")
@@ -408,7 +422,7 @@ class Scheduler:
         bs = self.pcfg.block_size
         while self._queue and self._slot_free:
             r = self._queue[0]
-            need = blocks_needed(len(r.context) + 1, bs)
+            need = self._blocks_for(len(r.context) + 1)
             shared, hashes = self._match_prefix(r)
             fresh = self.allocator.alloc(need - len(shared))
             if fresh is None:
@@ -419,6 +433,8 @@ class Scheduler:
             r.blocks, r.block_hashes = shared + fresh, hashes
             r.slot, r.state = self._slot_free.pop(), RequestState.RUNNING
             r.prefilled = min(len(shared) * bs, len(r.context) - 1)
+            if self._rec:  # a slot's state is reused in place: it must not leak
+                zero_state_slot(self.pools, r.slot)
             if self.draft is not None:
                 self.draft.reset(r.slot)
             if shared:
@@ -479,10 +495,12 @@ class Scheduler:
                 if rows_left <= 0:
                     break
                 if not r.decoding:
-                    n = min(rows_left * S, len(r.context) - r.prefilled)
+                    # recurrent state goes once per row: one row per slot
+                    cap = S if self._rec else rows_left * S
+                    n = min(cap, len(r.context) - r.prefilled)
                     segments.append((r, r.prefilled, n))
                     rows_left -= -(-n // S)
-            if self._cow_pass(decoders, segments):
+            if not self._has_paged or self._cow_pass(decoders, segments):
                 break
 
         # drafts after the plan is stable: no proposal is spent on a request
@@ -531,7 +549,7 @@ class Scheduler:
         probe_now = (self._quality is not None
                      and self._step_i % tel.cfg.quality_sample_every == 0)
         t_dispatch = tel.now()
-        logits, flat_probes = self._run_step(probe_now)
+        logits, extras, flat_probes = self._run_step(probe_now)
         t_done = tel.now()
         self._c_target_time.add(t_done - t_dispatch)
         probes = None if flat_probes is None else self._unpack_probes(flat_probes)
@@ -600,6 +618,10 @@ class Scheduler:
             tel.request_event(r.rid, "verify_round", drafted=len(d), accepted=n_acc,
                               committed=len(committed))
             self._rollback(r)
+            if self._rec and len(committed) < len(cells):
+                # the step stored the state after the row's last cell; the
+                # consumed cells are next_token + committed[:-1]
+                self._commit_state(extras, cells[0][0], r.slot, len(committed) - 1)
             self.draft.sync(r.slot, len(r.context))
         for r, start, n in segments:
             r.prefilled = start + n
@@ -610,9 +632,10 @@ class Scheduler:
                 tel.first_token(r.rid)
         for r in self._running:
             self._register_full_blocks(r)  # publish before anyone finishes
-            if self.release_window:
-                self._release_windowed(r)
-            self._g_live_peak.set_max(sum(1 for b in r.blocks if b >= 0))
+            if self._has_paged:
+                if self.release_window:
+                    self._release_windowed(r)
+                self._g_live_peak.set_max(sum(1 for b in r.blocks if b >= 0))
         for r in [r for r in self._running if r.done]:
             self._finish(r, results)
         if probes is not None:
@@ -632,13 +655,14 @@ class Scheduler:
                 blocks_freed=self.allocator.blocks_freed - blocks_freed0,
                 blocks_copied=self._c["cow_copies"].value - cow0)
 
-    def _run_step(self, probe: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _run_step(self, probe: bool = False):
         """Copy the packed inputs to the device and run the step, or with
         ``probe`` the probed step (graph replay or eager; a graph is captured
         before the ``packed_step`` span opens). Returns its logits, (rows, S,
-        vocab) float32, and the probed step's probes packed in one tensor
-        (``_unpack_probes``) or None. Under ``fence`` it waits for the step,
-        so the step record's device time is the step's."""
+        vocab) float32, its per-layer ``*_steps`` transients, and the probed
+        step's probes packed in one tensor (``_unpack_probes``) or None.
+        Under ``fence`` it waits for the step, so the step record's device
+        time is the step's."""
         inputs = self._in.upload()
         graph = self.probe_graph if probe else self.graph
         if graph is not None:
@@ -651,9 +675,9 @@ class Scheduler:
                 out = fn(self.params, self.pools, *inputs)[1]
             if self.telemetry.fence and self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
-        logits, flat = out if probe else (out, None)
+        (logits, extras), flat = out if probe else (out, None)
         self.last_logits = logits
-        return logits, flat
+        return logits, extras, flat
 
     @torch.inference_mode()
     def _probe_step(self, params, pools, *inputs):
@@ -759,13 +783,28 @@ class Scheduler:
             copy_blocks(self.pools, [s for _, s, _ in copies], [d for _, _, d in copies])
         return plan_live
 
+    def _commit_state(self, extras: list[dict], row: int, slot: int, step: int) -> None:
+        """The corrective commit: every recurrent layer's state at cell
+        ``step`` of grid row ``row`` (the step's ``*_steps`` transients)
+        over ``slot``'s state, in place."""
+        for pool, steps in zip(self.pools, extras):
+            for key, v in steps.items():
+                pool[key[: -len("_steps")]][slot].copy_(v[row, step])
+
+    def _blocks_for(self, n_tokens: int) -> int:
+        """Blocks to reserve for an ``n_tokens`` context: none when no layer
+        is paged (recurrent state is slot-major, pinned by the slot)."""
+        if not self._has_paged:
+            return 0
+        return blocks_needed(n_tokens, self.pcfg.block_size)
+
     def _rollback(self, r: Request) -> None:
         """Free the blocks a verify segment grew that hold only rejected
         drafts: all past ``blocks_needed(len(context) + 1)`` (the context
         and the pending next_token). Rejected writes inside a kept block sit
         above the horizon and are overwritten before anything reads them;
         the freed tail blocks were never registered or shared."""
-        keep = blocks_needed(len(r.context) + 1, self.pcfg.block_size)
+        keep = self._blocks_for(len(r.context) + 1)
         if len(r.blocks) > keep:
             r.blocks = self.allocator.truncate(r.blocks, keep)
 
@@ -783,7 +822,7 @@ class Scheduler:
                 r.blocks[j] = -1
 
     def _grow(self, r: Request, n_tokens: int = 1) -> None:
-        while blocks_needed(len(r.context) + n_tokens, self.pcfg.block_size) > len(r.blocks):
+        while self._blocks_for(len(r.context) + n_tokens) > len(r.blocks):
             got, _ = self._alloc_one(r)
             r.blocks.append(got)
 

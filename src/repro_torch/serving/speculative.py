@@ -24,8 +24,9 @@ the token non-speculative greedy decoding would produce for the same
 prefix, so the output equals ``speculative=None``'s token for token, as long
 as a cell's logits do not depend on the other cells of the step. Temperature
 sampling needs the rejection-sampling rule, which :func:`rejection_sample`
-documents and refuses, as JAX does. Only attention-cache (KV) draft models
-are ported; the recurrent draft branches wait for the ssm / hybrid families.
+documents and refuses, as JAX does. A recurrent draft (Mamba, RG-LRU) rolls
+its state back from a snapshot taken before the loop and catches up with
+one multi-token row per slot (its state is gathered and stored by slot).
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ from repro_torch.core import numerics as nx
 from repro_torch.core.qlinear import QLinearConfig
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.serving.graph_step import GraphStep, StepInputs, packed_idle
-from repro_torch.serving.paged_cache import attach_tables, blocks_needed, detach_tables
+from repro_torch.serving.paged_cache import (attach_tables, blocks_needed, detach_tables,
+                                             restore_state, restore_state_slot, snapshot_state,
+                                             split_step_extras, zero_state_slot)
 from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 __all__ = ["SpeculativeConfig", "DraftRunner", "greedy_verify", "rejection_sample",
@@ -74,7 +77,7 @@ class SpeculativeConfig:
             raise ValueError(f"speculative k must be >= 1, got {self.k}")
 
 
-def make_packed_fn(model):
+def make_packed_fn(model, extras: bool = False):
     """The packed step: every argument has a fixed shape per engine.
 
       slot_ids  (G,)    scheduler slot of each segment row
@@ -83,36 +86,46 @@ def make_packed_fn(model):
       tokens    (G, S)  token ids (anything in padded cells)
 
     Row ``g`` writes its valid tokens' KV into ``slot_ids[g]``'s blocks and
-    attends causally through that slot's block table. Returns
-    (pools, logits (G, S, vocab))."""
+    attends causally through that slot's block table; a recurrent layer
+    gathers the row's state by slot and stores the state after its last
+    valid cell (one row per slot). Returns (pools, logits (G, S, vocab)),
+    or with ``extras`` (pools, (logits, the per-layer ``*_steps``
+    transients of ``paged_cache.split_step_extras``))."""
 
     @torch.inference_mode()
     def packed_step(params, pools, bt, slot_ids, positions, ctx, tokens):
         caches = attach_tables(pools, bt, ctx, token_slots=slot_ids)
         out = model.apply(params, {"tokens": tokens}, positions=positions, caches=caches)
-        return detach_tables(out.caches), out.logits[..., : model.cfg.vocab_size]
+        pools, steps = split_step_extras(detach_tables(out.caches))
+        logits = out.logits[..., : model.cfg.vocab_size]
+        return pools, ((logits, steps) if extras else logits)
 
     return packed_step
 
 
-def make_probed_packed_fn(model):
+def make_probed_packed_fn(model, extras: bool = False):
     """The ``quality`` level's packed step: :func:`make_packed_fn`'s step,
     then a probe-only forward under ``numerics.collect`` masked on
     ``positions >= 0``. Returns (pools, logits, probes), ``probes`` the flat
     ``{site/stat: tensor}`` dict, one site per quantized projection per
-    layer in forward order (``"000.attn.q"`` ..).
+    layer in forward order (``"000.attn.q"`` ..); with ``extras`` the
+    logits come as ``(logits, *_steps transients)``.
 
     The pools and logits are the untouched step's, as in JAX, where the
     probe forward's outputs are discarded. The port writes the pools in
     place, so the probe forward writes this step's KV cells again: the same
     kernels on the same inputs give the same bits, and each layer attends
-    over the same cells the first forward saw, so the pools after a probed
-    step equal an unprobed step's bit for bit."""
-    packed_step = make_packed_fn(model)
+    over the same cells the first forward saw. Recurrent state is not
+    idempotent that way, so it is put back as the step found it before the
+    probe forward, which then stores the same state again. Either way the
+    pools after a probed step equal an unprobed step's bit for bit."""
+    packed_step = make_packed_fn(model, extras)
 
     @torch.inference_mode()
     def probed_step(params, pools, bt, slot_ids, positions, ctx, tokens):
+        before = snapshot_state(pools)
         pools, logits = packed_step(params, pools, bt, slot_ids, positions, ctx, tokens)
+        restore_state(pools, before)
         caches = attach_tables(pools, bt, ctx, token_slots=slot_ids)
         with nx.collect(mask=(positions >= 0).float()) as col:
             model.apply(params, {"tokens": tokens}, positions=positions, caches=caches)
@@ -177,15 +190,17 @@ class DraftRunner:
     ``ctx`` and the causal mask). ``reset`` (a new occupant) rewinds to 0: the
     draft replays the whole prompt; it never shares the target's prefix
     cache. A sliding-window draft keeps every block of its static tables:
-    the window mask alone bounds what it attends."""
+    the window mask alone bounds what it attends. A recurrent draft (Mamba,
+    RG-LRU) also restores the state of a slot whose drafts were rejected
+    from a snapshot taken before the loop (``sync``), and zeroes it on
+    ``reset``."""
+
+    _CATCH_S = 32  # tokens per slot per catch-up step of a recurrent draft
 
     def __init__(self, model, params, *, slots: int, cache_len: int, k: int,
                  block_size: int = 16, cache_dtype="float32", kv_quant: bool = False,
                  token_budget: int = 0, graph: bool | None = None, telemetry=None):
-        if any(p.kind == "recurrent" for p in model.cache_policies()):
-            raise NotImplementedError("only attention-cache (paged_kv, windowed_paged) draft "
-                                      "models are ported; recurrent drafts wait for their "
-                                      "families")
+        self._rec = any(p.kind == "recurrent" for p in model.cache_policies())
         self.model, self.params, self.k, self.slots = model, params, k, slots
         self.device = next(params.parameters()).device
         # headroom: the loop writes up to position n + k for a row whose own
@@ -207,9 +222,17 @@ class DraftRunner:
         self._c_steps = self.telemetry.counter("serving_draft_steps",
                                                "draft device dispatches (catch-up + scan)")
         self._packed = make_packed_fn(model)
-        self._catch_in = StepInputs(((self.budget,), (self.budget, 1), (self.budget,),
-                                     (self.budget, 1)), self.device)
+        # catch-up rows: ``budget`` one-token rows; a recurrent draft's state
+        # is gathered and stored by slot, so it takes one row of
+        # ``_CATCH_S`` tokens per slot instead
+        rows, width = (slots, self._CATCH_S) if self._rec else (self.budget, 1)
+        self._catch_in = StepInputs(((rows,), (rows, width), (rows,), (rows, width)),
+                                    self.device)
         self._loop_in = StepInputs(((slots,), (slots,), (slots,)), self.device)
+        # recurrent rollback: every layer's state after catch-up, before the
+        # loop (the state at each slot's context length), restored per slot
+        self._snap = snapshot_state(self.pools) if self._rec else None
+        self._snap_base: dict[int, int] | None = None
         if graph is None:
             graph = self.device.type == "cuda"
         elif graph and self.device.type != "cuda":
@@ -270,11 +293,24 @@ class DraftRunner:
     def reset(self, slot: int) -> None:
         """New occupant for ``slot``: nothing in the draft cache is valid."""
         self.pos[slot] = 0
+        if self._rec:
+            zero_state_slot(self.pools, slot)
 
     def sync(self, slot: int, n_valid: int) -> None:
         """After verification: positions >= ``n_valid`` were rejected drafts
-        (or never written); catch-up rewrites them."""
-        self.pos[slot] = min(self.pos[slot], n_valid)
+        (or never written); catch-up rewrites them. A recurrent draft holds
+        one state, which the loop advanced past the rejection: it goes back
+        to the snapshot (the state at the old context length) and catch-up
+        replays the accepted tokens. Full acceptance keeps the advanced
+        state."""
+        if self._rec and n_valid < self.pos[slot]:
+            if self._snap_base is None:  # no snapshot yet: nothing proposed
+                self.reset(slot)
+                return
+            restore_state_slot(self.pools, self._snap, slot)
+            self.pos[slot] = min(self._snap_base.get(slot, 0), n_valid)
+        else:
+            self.pos[slot] = min(self.pos[slot], n_valid)
 
     # -------------------------------------------------------------- proposal
     def propose(self, reqs: list[tuple[int, int, list[int], int, int]]) -> dict[int, list[int]]:
@@ -287,14 +323,26 @@ class DraftRunner:
         whose writes keep the draft cache warm).
 
         Context the draft has not seen is packed FCFS into catch-up steps of
-        ``budget`` rows (a fresh admission replays its prompt); then one loop
-        drafts for every row at once, and its drafts come to the host in one
-        copy."""
+        ``budget`` rows (a fresh admission replays its prompt; a recurrent
+        draft packs one row of up to ``_CATCH_S`` tokens per slot); then one
+        loop drafts for every row at once, and its drafts come to the host in
+        one copy."""
         if not reqs:
             return {}
-        T = self.budget
         pending = [[slot, list(context[self.pos[slot]:]), self.pos[slot]]
                    for _rid, slot, context, _nt, _k in reqs if self.pos[slot] < len(context)]
+        if self._rec:
+            self._catch_up_rows(pending)
+            # the state at each slot's context length, for sync's rollback
+            snapshot_state(self.pools, into=self._snap)
+            self._snap_base = {slot: len(ctx) for _r, slot, ctx, _nt, _k in reqs}
+        else:
+            self._catch_up_cells(pending)
+        return self._draft(reqs)
+
+    def _catch_up_cells(self, pending: list) -> None:
+        """Unseen context packed FCFS into steps of ``budget`` one-token rows."""
+        T = self.budget
         while pending:
             slot_ids, pos, ctx, tok = self._catch_in.arrays()
             slot_ids.fill(0)
@@ -318,6 +366,31 @@ class DraftRunner:
                            (self._bt,))
             pending = leftover
 
+    def _catch_up_rows(self, pending: list) -> None:
+        """A recurrent draft's catch-up: per step, one row per pending slot
+        holding its next ``_CATCH_S`` unseen tokens."""
+        S = self._CATCH_S
+        while pending:
+            slot_ids, pos, ctx, tok = self._catch_in.arrays()
+            slot_ids.fill(0)
+            pos.fill(-1)
+            tok.fill(0)
+            leftover = list(pending[self.slots:])
+            for row, (slot, toks, start) in enumerate(pending[: self.slots]):
+                n = min(S, len(toks))
+                slot_ids[row] = slot
+                pos[row, :n] = range(start, start + n)
+                tok[row, :n] = toks[:n]
+                if n < len(toks):
+                    leftover.append([slot, toks[n:], start + n])
+            ctx[:] = pos.max(axis=1) + 1
+            self._dispatch("draft_catchup", self._packed, self._catch_graph, self._catch_in,
+                           (self._bt,))
+            pending = leftover
+
+    def _draft(self, reqs) -> dict[int, list[int]]:
+        """The ``k + 1``-forward loop over every request's row; its drafts
+        come to the host in one copy."""
         slot_ids, tok0, pos0 = self._loop_in.arrays()
         slot_ids.fill(0)
         tok0.fill(0)

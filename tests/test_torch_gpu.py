@@ -766,6 +766,13 @@ def test_draft_loop_graph_is_bit_equal_to_eager(dev):
     (72, 2560, 13824, False),  # danube wi
     (72, 6912, 2560, True),    # danube wd, W8
     (72, 24576, 6144, True),   # nemotron wd, W8
+    (128, 4096, 16384, False),  # falcon-mamba in_proj (8 rows x 16 cells)
+    (128, 8192, 288, False),   # falcon-mamba x_proj: N no column strip divides
+    (128, 256, 8192, False),   # falcon-mamba dt_proj: the smallest K, split-K stages of 32
+    (128, 8192, 4096, False),  # falcon-mamba out_proj
+    (256, 2560, 256, False),   # recurrentgemma wk, wv (8 rows x 32 cells)
+    (256, 2560, 15360, False),  # recurrentgemma wi
+    (256, 7680, 2560, True),   # recurrentgemma wd, W8
 ])
 def test_fused_lut_gemm_at_family_shapes(dev, m, k, n, byte):
     """bf16 activations, the mul compare form: within 2 sqrt(K) u max(|a| @
@@ -799,20 +806,24 @@ def test_fused_lut_gemm_at_family_shapes(dev, m, k, n, byte):
     assert torch.equal(fused_lut_gemm(*args, **kw), fused_lut_gemm_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("n,k", [(6912, 35), (24576, 123)])
+@pytest.mark.parametrize("n,k", [(6912, 35), (24576, 123), (4096, 20), (8192, 41), (256, 1),
+                                 (2560, 13), (7680, 38)])
 @pytest.mark.parametrize("kind", ["normal", "specials"])
 def test_topk_at_family_widths(dev, n, k, kind):
-    """Orizuru's k = round(0.005 N) on danube's d_ff and nemotron's."""
+    """Orizuru's k = round(0.005 N) on danube's d_ff and nemotron's, and on
+    the recurrent families' projection inputs (falcon-mamba's 4096, 8192
+    and dt_proj's 256, where k = 1; recurrentgemma's 2560 and 7680)."""
     test_topk_kernel_vs_plain_exact(dev, 72, n, k, kind)
 
 
 @pytest.mark.parametrize("pages", PAGES)
 @pytest.mark.parametrize("hd,grp,kv", [(80, 4, 8), (128, 6, 8), (128, 12, 8), (64, 1, 32),
-                                       (128, 1, 16)])
+                                       (128, 1, 16), (256, 10, 1)])
 def test_paged_attn_family_heads(dev, pages, hd, grp, kv):
     """danube's head_dim 80 (the 128 class with masked lanes), nemotron's and
-    command-r's 128 with G = 6 and 12, musicgen's G = 1 over 32 KV heads
-    and qwen2-moe's G = 1 at 128."""
+    command-r's 128 with G = 6 and 12, musicgen's G = 1 over 32 KV heads,
+    qwen2-moe's G = 1 at 128 and recurrentgemma's 256 with G = 10 over one
+    KV head (three passes of 4 query rows)."""
     ctx = [1024, 1, 300, 0, 777, 16, 513, 900]
     args, vmax = _split_attn(dev, pages, 8, 1, ctx, max_blk=64, hd=hd, grp=grp, kv=kv,
                              seed=hd + grp)
@@ -820,26 +831,31 @@ def test_paged_attn_family_heads(dev, pages, hd, grp, kv):
 
 
 @pytest.mark.parametrize("pages", PAGES)
-def test_paged_attn_windowed_tables_with_holes(dev, pages):
-    """Decode rows past a 4096 window (ctx 4200-4800, head_dim 80) whose
-    logical tables hold -1 for every page wholly below the window, as the
-    scheduler's release leaves them: within the tolerance of the plain
-    version, and bit-equal to the same call on the full tables (the window
-    mask hides every key of a hole, and the splits that cover only holes
-    merge as empty)."""
-    ctx = [4200, 4800, 4096 + 17, 4500, 4799, 4111]
-    args, vmax = _split_attn(dev, pages, 6, 1, ctx, max_blk=512, hd=80, seed=5)
+@pytest.mark.parametrize("window,ctx,heads", [
+    (4096, [4200, 4800, 4096 + 17, 4500, 4799, 4111], (80, 4, 8)),  # h2o-danube
+    (2048, [2300, 2600, 2048 + 17, 2400, 2599, 2063], (256, 10, 1)),  # recurrentgemma
+])
+def test_paged_attn_windowed_tables_with_holes(dev, pages, window, ctx, heads):
+    """Decode rows past the window (danube: 4096, head_dim 80;
+    recurrentgemma: 2048, head_dim 256, G = 10) whose logical tables hold -1
+    for every page wholly below the window, as the scheduler's release
+    leaves them: within the tolerance of the plain version, and bit-equal
+    to the same call on the full tables (the window mask hides every key of
+    a hole, and the splits that cover only holes merge as empty)."""
+    hd, grp, kv = heads
+    args, vmax = _split_attn(dev, pages, 6, 1, ctx, max_blk=2 * window // 16, hd=hd, grp=grp,
+                             kv=kv, seed=5)
     tables, ctx_t, qpos = args[-3:]
     holed = tables.clone()
     ar = torch.arange(tables.shape[1], device=dev)
-    holed[ar[None, :] < ((qpos[:, :1] - 4096 + 1) // 16)] = -1
+    holed[ar[None, :] < ((qpos[:, :1] - window + 1) // 16)] = -1
     assert (holed < 0).sum() > (tables < 0).sum()
     with_holes = (*args[:-3], holed, ctx_t, qpos)
-    _check_split(pages, with_holes, vmax, window=4096)
+    _check_split(pages, with_holes, vmax, window=window)
     from repro_torch.kernels.paged_attn import paged_attn_bf16, paged_attn_int4
 
     kern = paged_attn_int4 if pages == "int4" else paged_attn_bf16
-    assert torch.equal(kern(*with_holes, window=4096), kern(*args, window=4096))
+    assert torch.equal(kern(*with_holes, window=window), kern(*args, window=window))
 
 
 def test_moe_layer_is_deterministic_and_graph_equal(dev):
@@ -901,3 +917,144 @@ def test_windowed_graph_step_is_bit_equal_to_eager(dev):
         for k in g:
             assert torch.equal(g[k], e[k]), k
     assert g_counts == e_counts and not any(g_counts[1].values())
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (falcon-mamba, recurrentgemma) on the card
+# ---------------------------------------------------------------------------
+
+def _recurrent_model(dev, arch, seg_width=4, **sc_kw):
+    """``arch``'s smoke config on the card under the fused route's spec
+    (int4 state and KV), its scheduler config with ``seg_width``-cell rows."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.qlinear import QLinearConfig
+    from repro_torch.core.quantspec import QuantSpec
+    from repro_torch.models.model import build as build_model
+    from repro_torch.models.model import quantize_model
+    from repro_torch.serving.engine import ServeConfig
+
+    model = build_model(get_smoke_config(arch))
+    spec = QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.05),
+                     rules=[("mlp/wd", {"w_bits": 8})], kv_bits=4, kv_dtype="float32")
+    params = model.init(seed=0, device=dev)
+    qp = quantize_model(model, params, spec)
+    sc = ServeConfig.from_spec(spec, cache_len=96, block_size=8, prefill_chunk=8,
+                               seg_width=seg_width, **sc_kw)
+    return model, params, qp, sc
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
+def test_recurrent_graph_step_is_bit_equal_to_eager(dev, arch):
+    """Packed steps of 4-cell rows (a slot's state goes once per row):
+    graph replays against eager steps on fresh pools, every step's logits
+    and every pool tensor -- the recurrent state and the scratch slot's
+    neighbours included -- bit for bit, and the same launch counts."""
+    model, _, qp, sc = _recurrent_model(dev, arch)
+    g_sched, g_logits, g_pools, g_counts = _run_steps(model, qp, sc, graph=True, n_steps=8)
+    _, e_logits, e_pools, e_counts = _run_steps(model, qp, sc, graph=False, n_steps=8)
+    assert g_sched.stats["decode_steps"] > 0 and g_sched.graph.capture_s > 0
+    for g, e in zip(g_logits, e_logits):
+        assert torch.equal(g, e)
+    for g, e in zip(g_pools, e_pools):
+        for k in g:
+            assert torch.equal(g[k], e[k]), k
+    assert g_counts == e_counts and not any(g_counts[1].values())
+
+
+def _state(pools, slot):
+    from repro_torch.serving.paged_cache import recurrent_state_keys
+
+    return [{k: layer[k][slot].clone() for k in recurrent_state_keys(layer)} for layer in pools]
+
+
+def test_corrective_commit_and_draft_restore_equal_replayed_state(dev):
+    """``k=3`` speculation on falcon-mamba's smoke config with a W3 draft,
+    the target step and the draft's steps as graphs. After every partly
+    accepted verify row (m of its cells consumed), the slot's state -- the
+    corrective commit copied it from the step's per-cell transients --
+    equals bit for bit the state an eager replay of the same step reaches
+    from the state before it with the row's other cells padded (same
+    shapes, so the same kernels and sums). After every rollback of the
+    draft, the slot's state -- ``restore_state_slot`` copied it from the
+    snapshot -- equals the state the draft held when that round's catch-up
+    ended."""
+    import dataclasses
+
+    from repro_torch.models.model import quantize_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import restore_state, snapshot_state
+    from repro_torch.serving.speculative import (DEFAULT_DRAFT_SPEC, SpeculativeConfig,
+                                                 make_packed_fn)
+
+    model, params, qp, sc = _recurrent_model(dev, "falcon_mamba_7b")
+    draft = quantize_model(model, params, DEFAULT_DRAFT_SPEC)
+    spec_sc = dataclasses.replace(sc, speculative=SpeculativeConfig(k=3))
+    eng = ServingEngine(model, qp, spec_sc, batch_slots=2, draft=(model, draft))
+    sched, runner = eng.scheduler, eng.scheduler.draft
+    seen = {"step": None, "commits": [], "catch_up": None, "target": 0, "draft": 0}
+    run_step, commit = sched._run_step, sched._commit_state
+
+    def recorded_step(probe=False):
+        # the step's inputs as the host packed them (the upload is in run_step)
+        seen["step"] = ([t.to(dev, copy=True) for t in sched._in.host],
+                        snapshot_state(sched.pools))
+        seen["commits"] = []
+        return run_step(probe)
+
+    sched._run_step = recorded_step
+    sched._commit_state = lambda *a: (seen["commits"].append(a[1:]), commit(*a))[1]
+    catch_up = runner._catch_up_rows
+    runner._catch_up_rows = lambda pending: (catch_up(pending),
+                                             seen.update(catch_up=snapshot_state(runner.pools)))
+    sync = runner.sync
+
+    def checked_sync(slot, n_valid):
+        restores = n_valid < runner.pos[slot]
+        sync(slot, n_valid)
+        if restores:
+            for g, w in zip(_state(runner.pools, slot), seen["catch_up"]):
+                for k in g:
+                    assert torch.equal(g[k], w[k][slot]), k
+            seen["draft"] += 1
+
+    runner.sync = checked_sync
+    packed = make_packed_fn(model)
+    for p in GRAPH_PROMPTS[:2]:
+        sched.submit(p, 12)
+    results = {}
+    while sched.step(results):
+        inputs, before = seen["step"]
+        for row, slot, step in seen["commits"]:
+            bt, slot_ids, pos, ctx, tok = (t.clone() for t in inputs)
+            pos[row, step + 1:] = -1
+            ctx[row] = pos[row].max() + 1
+            pools = model.init_caches(2, sc.cache_len, torch.float32, quantized=True,
+                                      layout="paged", block_size=sc.block_size, device=dev)
+            restore_state(pools, before)
+            pools, _ = packed(qp, pools, bt, slot_ids, pos, ctx, tok)
+            for g, w in zip(_state(sched.pools, slot), _state(pools, slot)):
+                for k in g:
+                    assert torch.equal(g[k], w[k]), k
+            seen["target"] += 1
+    assert seen["target"] > 0 and seen["draft"] > 0, seen
+    assert sched.stats["accepted_tokens"] < sched.stats["drafted_tokens"]
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
+def test_recurrent_probed_graph_keeps_the_state(dev, arch):
+    """At ``quality`` every step runs the probed graph, whose probe forward
+    first puts back the state the step advanced: the tokens equal the
+    unprobed graph engine's, and every step was probed."""
+    import dataclasses
+
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.telemetry import TelemetryConfig
+
+    model, _, qp, sc = _recurrent_model(dev, arch)
+    prompts = GRAPH_PROMPTS[:3]
+    want = ServingEngine(model, qp, sc, batch_slots=2).generate(prompts, 6)
+    tel = TelemetryConfig(level="quality", quality_sample_every=1, quality_shadow_every=1000)
+    eng = ServingEngine(model, qp, dataclasses.replace(sc, telemetry=tel), batch_slots=2)
+    assert eng.generate(prompts, 6) == want
+    assert eng.scheduler.probe_graph.capture_s > 0
+    assert eng.snapshot()["counters"]["numerics_probe_steps"] == eng.stats["packed_steps"]

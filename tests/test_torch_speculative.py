@@ -49,7 +49,6 @@ from repro_torch.core.artifact import load_quantized  # noqa: E402
 from repro_torch.core.quantspec import QuantSpec  # noqa: E402
 from repro_torch.serving import speculative as tspec  # noqa: E402
 from repro_torch.serving.engine import ServeConfig, ServingEngine  # noqa: E402
-from repro_torch.serving.paged_cache import CachePolicy  # noqa: E402
 from repro_torch.serving.speculative import (DEFAULT_DRAFT_SPEC, DraftRunner,  # noqa: E402
                                              SpeculativeConfig, greedy_verify)
 
@@ -309,14 +308,13 @@ def test_gates(models):
     with pytest.raises(NotImplementedError, match="rejection-sampling"):
         tspec.rejection_sample()
 
-    class Recurrent:
-        cfg = dart.model.cfg
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import build
 
-        def cache_policies(self):
-            return [CachePolicy("recurrent")]
-
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        DraftRunner(Recurrent(), dart.params, slots=2, cache_len=16, k=2)
+    rec = build(get_smoke_config("falcon_mamba_7b"))  # recurrent drafts are served
+    runner = DraftRunner(rec, rec.init(seed=0, device="cpu"), slots=2, cache_len=16, k=2)
+    assert {p.kind for p in rec.cache_policies()} == {"recurrent"}
+    assert [tuple(t.shape) for t in runner._catch_in.dev] == [(2,), (2, 32), (2,), (2, 32)]
 
     class OtherVocab:
         cfg = dataclasses.replace(dart.model.cfg, vocab_size=128)
