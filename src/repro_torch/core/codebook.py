@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "assign",
     "quantile_init",
     "kmeans_fit",
     "boundaries_from_centroids",
@@ -55,6 +56,14 @@ def quantile_init(x: torch.Tensor, n_centroids: int,
     cw = cw / torch.clamp(cw[-1], min=1e-30)
     pos = torch.searchsorted(cw, qs)
     return xs[pos.clamp(0, x.shape[0] - 1)]
+
+
+def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest-centroid assignment (Eq. 1): int32 indices, the shape of x.
+    Centroids need not be sorted; among equidistant centroids the first
+    wins, as ``argmin`` picks it."""
+    d = torch.abs(x[..., None] - centroids)
+    return torch.argmin(d, dim=-1).to(torch.int32)
 
 
 def boundaries_from_centroids(centroids: torch.Tensor) -> torch.Tensor:

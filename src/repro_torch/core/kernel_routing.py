@@ -51,6 +51,9 @@ __all__ = [
     "detect_jnp_calls",
     "detect_fallback_count",
     "comp_route_counts",
+    "dispatch_counts",
+    "detect_dispatch_counts",
+    "snapshot",
     "reset",
     "resolve_paged_route",
     "reset_env",
@@ -155,6 +158,16 @@ def record_comp_route(mode: str) -> None:
     _COMP_ROUTES[mode] += 1
 
 
+def dispatch_counts() -> dict[str, int]:
+    """``{"<tier>/<route>": count}`` of every recorded dispatch."""
+    return {f"{tier}/{route}": n for (tier, route), n in sorted(_DISPATCH.items())}
+
+
+def detect_dispatch_counts() -> dict[str, int]:
+    """``{"<tier>/<route>": count}`` of the detection dispatches."""
+    return {f"{tier}/{route}": n for (tier, route), n in sorted(_DETECT_DISPATCH.items())}
+
+
 def kernel_calls() -> int:
     return sum(n for (_, r), n in _DISPATCH.items() if r == "pallas")
 
@@ -186,6 +199,23 @@ def detect_fallback_count() -> int:
 
 def comp_route_counts() -> dict[str, int]:
     return dict(sorted(_COMP_ROUTES.items()))
+
+
+def snapshot() -> dict[str, int]:
+    """A flat copy of every counter, for delta-based checks."""
+    d = dispatch_counts()
+    for key, n in detect_dispatch_counts().items():
+        d[f"detect:{key}"] = n
+    for mode, n in comp_route_counts().items():
+        d[f"comp:{mode}"] = n
+    d["_kernel_calls"] = kernel_calls()
+    d["_jnp_calls"] = jnp_calls()
+    d["_fallbacks"] = fallback_count()
+    d["_detect_calls"] = detect_calls()
+    d["_detect_kernel_calls"] = detect_kernel_calls()
+    d["_detect_jnp_calls"] = detect_jnp_calls()
+    d["_detect_fallbacks"] = detect_fallback_count()
+    return d
 
 
 def reset() -> None:

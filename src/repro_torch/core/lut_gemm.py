@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.core.quantize import QuantizedActivation, QuantizedWeight
 
-__all__ = ["build_lut", "lut_gemm_counting", "lut_gemm"]
+__all__ = ["build_lut", "lut_gemm_counting", "lut_gemm", "woq_lut_size", "waq_lut_size",
+           "reduction_flops_counting"]
 
 
 def build_lut(act_codebook: torch.Tensor, wgt_codebook: torch.Tensor) -> torch.Tensor:
@@ -43,3 +44,22 @@ def lut_gemm(qa: QuantizedActivation, qw: QuantizedWeight, out_dtype=torch.float
     w = qw.centroids().to(compute_dtype)  # (K, N)
     y = a @ w
     return (y * qa.scale.to(compute_dtype) * qw.scale.to(compute_dtype)).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Table-I analytics (LUT sizes, reduction FLOPs)
+# ---------------------------------------------------------------------------
+
+def woq_lut_size(mu: int, k: int, entry_bytes: int = 2) -> int:
+    """Weight-only LUT size in bytes: 2^mu entries per group, K / mu groups."""
+    return (2**mu) * (k // mu) * entry_bytes
+
+
+def waq_lut_size(n_a: int, n_w: int, entry_bytes: int = 2) -> int:
+    """The Cartesian-product LUT: 2^(nA + nW) entries, independent of K."""
+    return (2 ** (n_a + n_w)) * entry_bytes
+
+
+def reduction_flops_counting(n_a: int, n_w: int, n_out: int) -> int:
+    """Float adds of the counting form's reduction per output row: 2^(nA + nW) N."""
+    return (2 ** (n_a + n_w)) * n_out

@@ -14,6 +14,7 @@ gives both devices (and the Orizuru kernels) one order.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -37,6 +38,8 @@ __all__ = [
     "outlier_residuals_direct",
     "compensate_gather",
     "compensate_scatter",
+    "orizuru_comparisons",
+    "naive_topk_comparisons",
 ]
 
 
@@ -146,3 +149,18 @@ def compensate_scatter(residuals: torch.Tensor, out: OutlierSet, qw: QuantizedWe
     r_dense.index_put_((rows, ch), r2, accumulate=True)
     w = qw.dequantize_rows().to(compute_dtype)
     return (r_dense @ w).reshape(*lead, w.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Orizuru comparison-count analytics (paper §IV-D)
+# ---------------------------------------------------------------------------
+
+def orizuru_comparisons(n: int, k: int) -> int:
+    """1.5N + 2k log2(N): the max tree's N - 1 (~N) comparisons, the min tree
+    reusing level one (N/2 saved), log2 N maintenance per each of 2k pops."""
+    return int(1.5 * n + 2 * k * math.log2(n))
+
+
+def naive_topk_comparisons(n: int) -> int:
+    """The SpAtten-style top-k engine baseline: ~6N comparisons."""
+    return 6 * n

@@ -38,8 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import calibration, numerics
 from repro_torch.core import kernel_routing as kr
-from repro_torch.core import numerics
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.quantize import pack_int4, unpack_int4
@@ -86,8 +86,11 @@ class Dense(nn.Module):
 
 def dense_apply(p: nn.Module, x: torch.Tensor, tap_name: str | None = None) -> torch.Tensor:
     """Float or quantized projection (a :class:`Dense` or a :class:`QLinear`).
-    ``tap_name`` names a quantized projection's probe site (JAX's
-    calibration tap name); it does nothing outside ``numerics.collect``."""
+    ``tap_name`` is the projection's calibration tap (``calibration.tap``:
+    an identity outside a capture or a Fisher pass) and names a quantized
+    projection's probe site, which does nothing outside ``numerics.collect``."""
+    if tap_name is not None:
+        x = calibration.tap(tap_name, x)
     if isinstance(p, QLinear):
         numerics.announce(tap_name)
     elif not isinstance(p, Dense):

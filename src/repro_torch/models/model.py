@@ -3,15 +3,17 @@
     model  = build(cfg)
     params = model.init(seed)                         # a TransformerLM module
     out    = model.apply(params, {"tokens": t}, positions=..., caches=...)
-    qparams = quantize_model(model, params, spec)     # Dense -> QLinear modules
+    qparams = quantize_model(model, params, spec, calib)  # Dense -> QLinear modules
 
 ``params`` is the model's ``nn.Module``; ``model.apply`` calls the family's
 module (``transformer`` for dense and audio, ``moe`` for moe, ``mamba`` for
 ssm, ``rglru`` for hybrid; vlm is not ported yet) and wraps the result in
-:class:`ModelOutput`,
-with the MoE aux loss. Quantization without calibration data
-uses the structural Gaussian activation codebook, carried bit-equal to the
-JAX one (``gaussian_codebooks.py``). Calibration is not ported yet.
+:class:`ModelOutput`, with the MoE aux loss, or the final-norm hidden states
+with ``return_hidden_only`` (the trainer's chunked cross-entropy).
+Quantization with calibration activations (``core.calibration.capture``)
+fits each projection's activation codebook and OASIS-S thresholds on them;
+without, it uses the structural Gaussian activation codebook, carried
+bit-equal to the JAX one (``gaussian_codebooks.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import QLinear, QLinearConfig, QLinearParams
-from repro_torch.core.quantize import QuantizedWeight, quantize_weight
+from repro_torch.core.outlier import static_thresholds
+from repro_torch.core.quantize import QuantizedWeight, fit_activation_codebook, quantize_weight
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -34,7 +37,8 @@ from repro_torch.models import mamba, moe, rglru, transformer
 from repro_torch.models.gaussian_codebooks import GAUSSIAN_CENTROIDS
 
 __all__ = ["Model", "ModelOutput", "build", "head_matrix", "quantize_model",
-           "quantize_params", "params_from_numpy", "params_from_tree", "tree_from_params"]
+           "quantize_params", "unstack_for_capture", "params_from_numpy", "params_from_tree",
+           "tree_from_params"]
 
 # the paper-quantizable projections; the router, the shared experts' gate,
 # the head and the embedding stay float whatever the spec says (as in JAX),
@@ -43,6 +47,18 @@ _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wi", "wd", "in_proj", "x_proj", "dt_proj
                "lin_y", "lin_x", "lin_out", "w_a", "w_x"}
 _SKIP_KEYS = {"router", "head", "embed", "shared_gate"}
 
+# param leaf key -> the calibration tap name(s) it feeds (``dense_apply``'s
+# ``tap_name`` in models/*.py); vlm's cross-attention taps ("cross.*") are
+# kept for the names' sake (the family is not ported)
+_TAP_OF = {
+    "wq": ("attn.q",), "wk": ("attn.k",), "wv": ("attn.v",), "wo": ("attn.o",),
+    "wi": ("mlp.wi",), "wd": ("mlp.wd",),
+    "in_proj": ("mamba.in_proj",), "x_proj": ("mamba.x_proj",),
+    "dt_proj": ("mamba.dt_proj",), "out_proj": ("mamba.out_proj",),
+    "lin_y": ("rec.lin_y",), "lin_x": ("rec.lin_x",), "lin_out": ("rec.lin_out",),
+    "w_a": ("rglru.wa",), "w_x": ("rglru.wx",),
+}
+
 # vlm is not ported yet (transformer.check_ported raises)
 _FAMILY_MODULES = {"dense": transformer, "audio": transformer, "moe": moe, "ssm": mamba,
                    "hybrid": rglru}
@@ -50,9 +66,10 @@ _FAMILY_MODULES = {"dense": transformer, "audio": transformer, "moe": moe, "ssm"
 
 @dataclasses.dataclass
 class ModelOutput:
-    logits: torch.Tensor  # (B, S, vocab_padded) float32
+    logits: torch.Tensor | None  # (B, S, vocab_padded) float32 (None if hidden-only)
     caches: Any = None
     aux_loss: torch.Tensor | None = None  # moe: the layers' mean Switch loss
+    hidden: torch.Tensor | None = None  # final-norm hidden states (B, S, d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,9 +94,13 @@ class Model:
         return self._mod.cache_policies(self.cfg)
 
     def apply(self, params: transformer.TransformerLM, batch: dict, *, positions=None,
-              caches=None, last_only: bool = False) -> ModelOutput:
+              caches=None, last_only: bool = False,
+              return_hidden_only: bool = False) -> ModelOutput:
         out = self._mod.apply(params, self.cfg, batch["tokens"], positions=positions,
-                              caches=caches, last_only=last_only)
+                              caches=caches, last_only=last_only,
+                              return_hidden_only=return_hidden_only)
+        if return_hidden_only:
+            return ModelOutput(None, *out[1:], hidden=out[0])
         return ModelOutput(*out)
 
 
@@ -93,6 +114,14 @@ def head_matrix(model: Model, params: transformer.TransformerLM) -> torch.Tensor
     if model.cfg.tie_embeddings:
         return params.embed.T
     return params.head.w
+
+
+def unstack_for_capture(model: Model, params: transformer.TransformerLM):
+    """JAX's (model, scan-stacked params) -> (unscanned model, per-layer
+    params), which its calibration taps need. The port's layers are never
+    scanned, so its taps fire in every forward: an identity, kept for the
+    API."""
+    return model, params
 
 
 def _default_codebook(nbits: int, method: str = "kmeans", device="cpu") -> torch.Tensor:
@@ -110,21 +139,29 @@ def _default_codebook(nbits: int, method: str = "kmeans", device="cpu") -> torch
 def quantize_model(model: Model, params: transformer.TransformerLM, spec: QuantSpec,
                    calib: dict | None = None) -> transformer.TransformerLM:
     """A copy of ``params`` whose projections the spec selects are ``QLinear``
-    modules (float tensors are shared with ``params``, not copied)."""
-    if calib is not None:
-        raise NotImplementedError("calibrated PTQ is not ported yet")
+    modules (float tensors are shared with ``params``, not copied).
+
+    ``calib``: optional ``{tap_name: (tokens, K) activations}`` from
+    ``core.calibration.captured``; with it each projection's activation
+    codebook (and the OASIS-S static thresholds) is fit on the activations
+    that feed it, else the structural Gaussian codebook is used."""
     if not isinstance(params, transformer.TransformerLM) or params.cfg != model.cfg:
         raise ValueError(f"params are not a parameter tree of {model.cfg.arch_id}")
-    return quantize_params(params, spec, scan_layers=model.cfg.scan_layers)
+    return quantize_params(params, spec, calib, scan_layers=model.cfg.scan_layers)
 
 
-def quantize_params(params: nn.Module, spec: QuantSpec, scan_layers: bool = True) -> nn.Module:
+@torch.no_grad()
+def quantize_params(params: nn.Module, spec: QuantSpec, calib: dict | None = None,
+                    scan_layers: bool = True) -> nn.Module:
     """Replace every spec-selected :class:`Dense` projection by a :class:`QLinear`.
 
     Paths follow the JAX parameter tree: with ``scan_layers`` the stacked
     layers share one path per projection (``blocks/attn/wq``), otherwise
-    each layer has its own (``blocks/3/attn/wq``)."""
+    each layer has its own (``blocks/3/attn/wq``). Layers that share a path
+    share its calibrated codebook and thresholds, fit once (JAX fits them
+    once per layer under ``vmap``, on the same pooled activations)."""
     out = copy.deepcopy(params, memo={id(t): t for t in params.parameters()})
+    fitted: dict = {}
 
     def walk(mod: nn.Module, path: str):
         for name, child in list(mod.named_children()):
@@ -137,7 +174,7 @@ def quantize_params(params: nn.Module, spec: QuantSpec, scan_layers: bool = True
             if name in _QUANT_KEYS and isinstance(child, L.Dense):
                 cfg = spec.resolve(sub)
                 if cfg is not None:
-                    setattr(mod, name, QLinear(_quantize_one(child, cfg)))
+                    setattr(mod, name, QLinear(_quantize_one(child, cfg, calib, sub, fitted)))
             else:
                 walk(child, sub)
 
@@ -145,18 +182,61 @@ def quantize_params(params: nn.Module, spec: QuantSpec, scan_layers: bool = True
     return out
 
 
-def _quantize_one(p: L.Dense, cfg: QLinearConfig) -> QLinearParams:
-    """Quantize one projection under its resolved config (no calibration:
-    structural codebook, static thresholds at +-3)."""
+def _quantize_one(p: L.Dense, cfg: QLinearConfig, calib: dict | None, path: str,
+                  fitted: dict) -> QLinearParams:
+    """Quantize one projection under its resolved config. ``fitted`` holds
+    the calibrated codebooks and thresholds already fit in this call, by
+    path. Without calibration activations: the structural codebook and
+    static thresholds at +-3."""
     w = p.w
     qw = quantize_weight(w.float(), nbits=cfg.w_bits, method=cfg.method)
-    book = _default_codebook(cfg.a_bits, cfg.method, device=w.device)
+    key = (path, cfg.a_bits, cfg.scale_mode, cfg.method)
+    if key not in fitted:
+        fitted[key] = _codebook_for(path, cfg, calib)
+    book = fitted[key].to(w.device).clone()
     thr_lo = thr_hi = None
     if cfg.detection in ("static", "static_dense"):
-        thr_lo = torch.tensor(-3.0, device=w.device)
-        thr_hi = torch.tensor(3.0, device=w.device)
+        key = (path, cfg.outlier_frac)
+        if key not in fitted:
+            acts = _calib_for(path, calib)
+            fitted[key] = ((torch.tensor(-3.0), torch.tensor(3.0)) if acts is None
+                           else static_thresholds(acts, cfg.outlier_frac))
+        thr_lo, thr_hi = (t.to(w.device).clone() for t in fitted[key])
     return QLinearParams(qw=qw, act_codebook=book, bias=None if p.b is None else p.b.data,
                          thr_lo=thr_lo, thr_hi=thr_hi, cfg=cfg)
+
+
+def _tap_candidates(path: str) -> tuple[str, ...]:
+    """Calibration tap names that feed the projection at ``path``."""
+    leaf = path.rsplit("/", 1)[-1]
+    taps = _TAP_OF.get(leaf, (leaf,))
+    if "cross" in path:  # vlm cross-attention blocks tap under "cross"
+        taps = tuple(t.replace("attn.", "cross.") for t in taps) + taps
+    return taps
+
+
+def _calib_for(path: str, calib: dict | None):
+    """Captured activations for the projection at ``path``, or None. Tap
+    names are projection-scoped (``attn.q``, ``mlp.wd``, ...), pooled over
+    layers: exact tap-name match first, then suffix match."""
+    if not calib:
+        return None
+    for tap in _tap_candidates(path):
+        if tap in calib:
+            return calib[tap]
+    for tap in _tap_candidates(path):
+        for name, acts in calib.items():
+            if name.endswith(tap):
+                return acts
+    return None
+
+
+def _codebook_for(path: str, cfg: QLinearConfig, calib: dict | None) -> torch.Tensor:
+    acts = _calib_for(path, calib)
+    if acts is not None:
+        return fit_activation_codebook(acts, nbits=cfg.a_bits, scale_mode=cfg.scale_mode,
+                                       method=cfg.method)
+    return _default_codebook(cfg.a_bits, cfg.method)
 
 
 # ---------------------------------------------------------------------------
@@ -246,42 +326,45 @@ def params_from_tree(tree: dict, cfg: ModelConfig) -> transformer.TransformerLM:
     return transformer.TransformerLM(cfg, tree["embed"]["table"], blocks, nf, head, bf)
 
 
-def _proj_tree(p: nn.Module):
+def _data(t: torch.Tensor) -> torch.Tensor:
+    return t.data
+
+
+def _proj_tree(p: nn.Module, leaf=_data):
     if isinstance(p, QLinear):
         return p.params
-    return {"w": p.w.data} if p.b is None else {"w": p.w.data, "b": p.b.data}
+    return {"w": leaf(p.w)} if p.b is None else {"w": leaf(p.w), "b": leaf(p.b)}
 
 
-def _norm_tree(scale: nn.Parameter, bias: nn.Parameter | None) -> dict:
-    return {"scale": scale.data} if bias is None else {"scale": scale.data, "bias": bias.data}
+def _norm_tree(scale: nn.Parameter, bias: nn.Parameter | None, leaf=_data) -> dict:
+    return {"scale": leaf(scale)} if bias is None else {"scale": leaf(scale), "bias": leaf(bias)}
 
 
-def _block_tree(b: nn.Module) -> dict:
+def _block_tree(b: nn.Module, leaf=_data) -> dict:
+    proj = lambda mod, keys: {k: _proj_tree(getattr(mod, k), leaf) for k in keys}
     if isinstance(b, mamba.MambaBlock):
-        return {"norm": _norm_tree(b.norm, b.norm_bias),
-                **{k: _proj_tree(getattr(b, k)) for k in ("in_proj", "x_proj", "dt_proj",
-                                                          "out_proj")},
-                **{k: getattr(b, k).data for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D")}}
+        return {"norm": _norm_tree(b.norm, b.norm_bias, leaf),
+                **proj(b, ("in_proj", "x_proj", "dt_proj", "out_proj")),
+                **{k: leaf(getattr(b, k)) for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D")}}
     if isinstance(b, rglru.RecBlock):
-        return {"norm1": _norm_tree(b.norm1, b.norm1_bias),
-                "norm2": _norm_tree(b.norm2, b.norm2_bias),
-                **{k: _proj_tree(getattr(b, k)) for k in ("lin_y", "lin_x", "w_a", "w_x",
-                                                          "lin_out")},
-                "conv_w": b.conv_w.data, "conv_b": b.conv_b.data, "lambda": b.lam.data,
-                "mlp": {k: _proj_tree(getattr(b.mlp, k)) for k in ("wi", "wd")}}
-    out = {"norm1": _norm_tree(b.norm1, b.norm1_bias),
-           "attn": {k: _proj_tree(getattr(b.attn, k)) for k in ("wq", "wk", "wv", "wo")}}
+        return {"norm1": _norm_tree(b.norm1, b.norm1_bias, leaf),
+                "norm2": _norm_tree(b.norm2, b.norm2_bias, leaf),
+                **proj(b, ("lin_y", "lin_x", "w_a", "w_x", "lin_out")),
+                "conv_w": leaf(b.conv_w), "conv_b": leaf(b.conv_b), "lambda": leaf(b.lam),
+                "mlp": proj(b.mlp, ("wi", "wd"))}
+    out = {"norm1": _norm_tree(b.norm1, b.norm1_bias, leaf),
+           "attn": proj(b.attn, ("wq", "wk", "wv", "wo"))}
     if b.moe is not None:
         m = b.moe
-        sub = {"router": _proj_tree(m.router), "wi": m.wi.data, "wd": m.wd.data}
+        sub = {"router": _proj_tree(m.router, leaf), "wi": leaf(m.wi), "wd": leaf(m.wd)}
         if m.shared is not None:
-            sub["shared"] = {k: _proj_tree(getattr(m.shared, k)) for k in ("wi", "wd")}
-            sub["shared_gate"] = _proj_tree(m.shared_gate)
+            sub["shared"] = proj(m.shared, ("wi", "wd"))
+            sub["shared_gate"] = _proj_tree(m.shared_gate, leaf)
         out["moe"] = sub
     else:
-        out["mlp"] = {k: _proj_tree(getattr(b.mlp, k)) for k in ("wi", "wd")}
+        out["mlp"] = proj(b.mlp, ("wi", "wd"))
     if b.norm2 is not None:
-        out["norm2"] = _norm_tree(b.norm2, b.norm2_bias)
+        out["norm2"] = _norm_tree(b.norm2, b.norm2_bias, leaf)
     return out
 
 
@@ -303,15 +386,17 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def tree_from_params(params: transformer.TransformerLM) -> dict:
+def tree_from_params(params: transformer.TransformerLM, leaf=_data) -> dict:
     """The inverse of :func:`params_from_tree`: the JAX-layout tree of the
-    port's model, with the layers stacked when its config scans them."""
-    blocks = [_block_tree(b) for b in params.blocks]
-    tree = {"embed": {"table": params.embed.data},
+    port's model, with the layers stacked when its config scans them.
+    ``leaf(parameter)`` gives each float leaf (default: the parameter's
+    tensor; the trainer maps parameters to their AdamW moments)."""
+    blocks = [_block_tree(b, leaf) for b in params.blocks]
+    tree = {"embed": {"table": leaf(params.embed)},
             "blocks": _stack(blocks) if params.cfg.scan_layers else blocks,
-            "norm_f": _norm_tree(params.norm_f, params.norm_f_bias)}
+            "norm_f": _norm_tree(params.norm_f, params.norm_f_bias, leaf)}
     if params.head is not None:
-        tree["head"] = _proj_tree(params.head)
+        tree["head"] = _proj_tree(params.head, leaf)
     return tree
 
 

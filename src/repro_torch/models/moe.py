@@ -187,10 +187,11 @@ def init(cfg: ModelConfig, seed: int, device) -> TransformerLM:
 
 
 def apply(params: TransformerLM, cfg: ModelConfig, tokens, *, positions=None, caches=None,
-          last_only: bool = False):
-    """-> (logits, caches, aux loss: the layers' mean)."""
+          last_only: bool = False, return_hidden_only: bool = False):
+    """-> (logits, or the hidden states with ``return_hidden_only``, caches,
+    aux loss: the layers' mean)."""
     if params.cfg != cfg:
         raise ValueError("params were built for another config")
-    logits, caches, aux = params(tokens, positions=positions, caches=caches,
-                                 last_only=last_only)
-    return logits, caches, aux / cfg.n_layers
+    out, caches, aux = params(tokens, positions=positions, caches=caches, last_only=last_only,
+                              hidden_only=return_hidden_only)
+    return out, caches, aux / cfg.n_layers

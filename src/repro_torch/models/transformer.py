@@ -18,6 +18,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -93,9 +94,14 @@ class TransformerLM(nn.Module):
         self.head = head
 
     def forward(self, tokens: torch.Tensor, positions=None, caches=None,
-                last_only: bool = False):
+                last_only: bool = False, hidden_only: bool = False):
         """tokens (B, S) -> (logits float32 (B, S, vocab_padded), caches, the
-        sum of the MoE layers' aux losses or None)."""
+        sum of the MoE layers' aux losses or None). ``hidden_only`` returns
+        the final-norm hidden states (B, S, d) in place of the logits.
+
+        Without caches and with autograd on, ``cfg.remat`` ``"block"`` or
+        ``"double"`` recomputes each block in the backward pass
+        (``torch.utils.checkpoint``), as JAX checkpoints its block."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
@@ -104,10 +110,15 @@ class TransformerLM(nn.Module):
         if cfg.pos_embed == "sinusoidal":
             pe = L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
             x = x + (pe if positions.ndim == 2 else pe[None])
+        remat = (cfg.remat in ("block", "double") and caches is None
+                 and torch.is_grad_enabled())
         new_caches = None if caches is None else []
         aux_total = None
         for i, block in enumerate(self.blocks):
-            x, c, aux = block(x, cfg, positions, None if caches is None else caches[i])
+            if remat:
+                x, c, aux = checkpoint(block, x, cfg, positions, None, use_reentrant=False)
+            else:
+                x, c, aux = block(x, cfg, positions, None if caches is None else caches[i])
             if caches is not None:
                 new_caches.append(c)
             if aux is not None:
@@ -115,6 +126,8 @@ class TransformerLM(nn.Module):
         if last_only:
             x = x[:, -1:]
         x = L.norm_apply(self.norm_f, x, cfg.norm, self.norm_f_bias)
+        if hidden_only:
+            return x, new_caches, aux_total
         if cfg.tie_embeddings:
             logits = x @ self.embed.to(x.dtype).T
         else:
@@ -161,12 +174,14 @@ def init(cfg: ModelConfig, seed: int, device, ffn=None) -> TransformerLM:
 
 
 def apply(params: TransformerLM, cfg: ModelConfig, tokens, *, positions=None, caches=None,
-          last_only: bool = False):
-    """-> (logits, caches)."""
+          last_only: bool = False, return_hidden_only: bool = False):
+    """-> (logits, or the final-norm hidden states with
+    ``return_hidden_only``, caches)."""
     if params.cfg != cfg:
         raise ValueError("params were built for another config")
-    logits, caches, _ = params(tokens, positions=positions, caches=caches, last_only=last_only)
-    return logits, caches
+    out, caches, _ = params(tokens, positions=positions, caches=caches, last_only=last_only,
+                            hidden_only=return_hidden_only)
+    return out, caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
 from repro_torch.core.quantize import (fit_activation_codebook, quantize_activation,  # noqa: E402
                                        quantize_weight)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
 from repro_torch.core.quantize import bucketize_mul_form  # noqa: E402
 from repro_torch.kernels.bucketize import rank  # noqa: E402
