@@ -43,9 +43,11 @@ Phases, each printing one JSON line:
               one CUDA graph (the default on the card): every projection
               and attention of every step through its kernel (launch and
               dispatch counts exact, no plain route and no plain version on
-              a CUDA tensor), then a profiled extra run. An eager engine's
+              a CUDA tensor), then a profiled extra run; then the first 4
+              requests x 16 tokens on a graph and on an eager engine, each
+              with exact counts, their tokens equal (an eager engine's
               whole run is cut for time: ``graph_step`` holds graph
-              against eager.
+              against eager step by step).
 5b. graph_step_a, serve_a -- path A: the same weights on the plain GEMM
               route and the default bf16 KV pool, the same steps, requests
               and checks with the streaming and float-page attention kernels,
@@ -149,7 +151,9 @@ Phases, each printing one JSON line:
               the CPU from one init: losses within ``TRAIN_LOSS_RTOL``,
               parameters within ``TRAIN_PARAM_REL_L2`` per parameter; two
               card runs compared bit for bit and reported (the embedding's
-              backward accumulates with atomics), not gated.
+              backward accumulates with atomics), not gated; the Fisher
+              pass under remat within ``FISHER_REL_L2`` of the CPU's at
+              every tap.
     train   -- llama3_2_1b whole (16 layers, bf16 parameters, float32
               moments, ``remat="block"``): ``TRAIN_STEPS`` steps of 16 x 64
               tokens of the repository's own text through ``Trainer`` (the
@@ -1145,33 +1149,37 @@ def serve_once(model, params, sc, prompts, per_step: dict, routes: dict, graph: 
 
 
 def serve_run(phase: str, model, params, sc, per_step: dict, routes: dict, smi_line,
-              extra: dict, profile_eager: bool = True, eager: bool = True, prompts=None,
-              **once) -> tuple[bool, dict]:
+              extra: dict, prompts=None, eager_check: tuple[int, int] | None = None,
+              **once) -> tuple[bool, dict, list, float]:
     """The graph engine (the default on the card) serves ``prompts``
-    (default ``serve_prompts``), then, in the same call and unless
-    ``eager`` is False, an eager engine (``graph=False``) serves them on the
-    same weights; each (the graph engine alone without ``profile_eager``) is
-    profiled on a short extra run (``_profile`` lines) before the next
-    starts. Passes when both pass ``serve_once`` (``once``: its options)
-    and their tokens are equal. Returns (ok, the graph run's launches, its
-    tokens, its tokens/s)."""
+    (default ``serve_prompts``) and is profiled on a short extra run
+    (``_profile`` lines). With ``eager_check=(n, new)`` the first ``n``
+    prompts are then served for ``new`` tokens by a graph engine and by an
+    eager engine (``graph=False``) on the same weights. Passes when every run
+    passes ``serve_once`` (``once``: its options) and the two short runs'
+    tokens are equal. Returns (ok, the graph run's launches, its tokens, its
+    tokens/s)."""
     cfg = model.cfg
     prompts = prompts or serve_prompts(cfg.vocab_size)
-    runs, tokens = {}, {}
-    for graph in (True, False) if eager else (True,):
-        name = "graph" if graph else "eager"
-        engine, tokens[name], runs[name] = serve_once(model, params, sc, prompts, per_step,
-                                                      routes, graph, **once)
-        if graph or profile_eager:
-            phase_profile(f"{phase}_profile", engine, cfg.vocab_size, name)
-        del engine
-    equal = tokens["graph"] == tokens.get("eager", tokens["graph"])
-    ok = equal and all(r["ok"] for r in runs.values())
-    speedup = runs["eager"]["ms_per_step"] / runs["graph"]["ms_per_step"] if eager else None
+    engine, tokens, run = serve_once(model, params, sc, prompts, per_step, routes, True, **once)
+    phase_profile(f"{phase}_profile", engine, cfg.vocab_size, "graph")
+    del engine
+    ok, short = run["ok"], {}
+    if eager_check is not None:
+        n, new = eager_check
+        outs = {}
+        for graph in (True, False):
+            _, outs[graph], r = serve_once(model, params, sc, prompts[:n], per_step, routes,
+                                           graph, **{**once, "new": new})
+            short["short_graph" if graph else "short_eager"] = r
+        short["short_tokens_equal"] = outs[True] == outs[False]
+        short["short_requests"], short["short_new_tokens"] = n, new
+        ok = ok and short["short_tokens_equal"] and all(
+            short[k]["ok"] for k in ("short_graph", "short_eager"))
     emit(phase, arch=cfg.arch_id, layers=cfg.n_layers, requests=len(prompts),
-         prompt_tokens=sum(len(p) for p in prompts), tokens_equal=equal if eager else None,
-         graph_speedup=speedup, card=smi_line, ok=ok, **runs, **extra)
-    return ok, runs["graph"]["launches"], tokens["graph"], runs["graph"]["tokens_per_s"]
+         prompt_tokens=sum(len(p) for p in prompts), card=smi_line, ok=ok, graph=run,
+         **short, **extra)
+    return ok, run["launches"], tokens, run["tokens_per_s"]
 
 
 def phase_graph_step(phase: str, model, params, sc, n_steps: int = 3, prompts=None) -> bool:
@@ -1233,7 +1241,7 @@ def phase_serve(dev, smi_line):
     # top-k) and one attention per layer, all on their kernels
     ok, launches, tokens, tps = serve_run(
         "serve", model, qp, sc, FUSED_PER_LAYER, FUSED_ROUTES, smi_line,
-        dict(ptq_s=ptq_s, draft_ptq_s=draft_ptq_s), eager=False)
+        dict(ptq_s=ptq_s, draft_ptq_s=draft_ptq_s), eager_check=(4, 16))
     return ok, step_ok, launches, model, qp, draft, tokens, tps
 
 
@@ -1254,7 +1262,7 @@ def phase_serve_a(model, qp, smi_line):
     # 6 projections per layer: one plain GEMM and one streaming quantize +
     # detect launch each; one float-page attention per layer
     ok, launches, _, _ = serve_run("serve_a", model, qa, sc, PATH_A_PER_LAYER, PATH_A_ROUTES,
-                                   smi_line, {}, eager=False)
+                                   smi_line, {})
     return ok, step_ok, launches
 
 
@@ -2501,7 +2509,7 @@ def phase_moe(dev, smi_line) -> dict:
     sc = ServeConfig.from_spec(main_spec(), cache_len=1024, block_size=16, prefill_chunk=64)
     out = {"granite graph step": phase_graph_step("moe_graph_step", model, qp, sc)}
     out["granite serve"] = serve_run("moe", model, qp, sc, MOE_PER_LAYER, MOE_ROUTES, smi_line,
-                                     dict(ptq_s=ptq_s), eager=False)[0]
+                                     dict(ptq_s=ptq_s))[0]
     del model, qp
     out["qwen2-moe card vs cpu"] = card_vs_cpu("moe_model", "qwen2_moe_a2_7b", 2, dev,
                                                seeds=(1,), forced=True)
@@ -2579,7 +2587,7 @@ def phase_ssm(dev, smi_line) -> bool:
     step_ok = phase_graph_step("ssm_graph_step", model, qp, sc,
                                prompts=short_prompts(model.cfg.vocab_size))
     ok = serve_run("ssm", model, qp, sc, SSM_PER_LAYER, SSM_ROUTES, smi_line,
-                   dict(ptq_s=ptq_s, seg_width=SSM_SEG), eager=False)[0]
+                   dict(ptq_s=ptq_s, seg_width=SSM_SEG))[0]
     return {"ssm graph step": step_ok, "ssm serve": ok}
 
 
@@ -2628,7 +2636,7 @@ def phase_hybrid(dev, smi_line) -> bool:
     cap = windowed_block_cap(cfg.sliding_window, 16)
     ok = serve_run("hybrid", model, qp, sc, per, routes, smi_line,
                    dict(ptq_s=ptq_s, seg_width=HYBRID_SEG, block_cap=cap, live_blocks=live),
-                   eager=False, prompts=hybrid_prompts(cfg.vocab_size), new=32,
+                   prompts=hybrid_prompts(cfg.vocab_size), new=32,
                    layers=1, watch=watch)[0]
     return {"hybrid graph step": step_ok, "hybrid serve": ok,
             "hybrid live blocks": 0 < live["max"] <= cap and live["holes"] > 0}
@@ -2837,6 +2845,8 @@ def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 
 TRAIN_STEPS = 200  # the serving example's default
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, float32, each of 3 steps' losses
 TRAIN_PARAM_REL_L2 = 1e-3  # card vs CPU after 3 steps, per parameter
+FISHER_REL_L2 = 1e-4  # card vs CPU, float32 under remat, per tap name
+FISHER_TAPS = ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.wi", "mlp.wd")  # llama's
 
 
 def train_model(layers: int | None = None, float32: bool = False):
@@ -2867,13 +2877,41 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
+def tap_shapes(model, params, tok) -> dict:
+    """Each tap's activation shape in the training forward of ``tok``
+    (B, S + 1), from a capture of that forward."""
+    import torch
+
+    from repro_torch.core import calibration
+
+    with torch.no_grad(), calibration.capture() as store:
+        model.apply(params, {"tokens": tok[:, :-1]})
+    b, s = tok.shape
+    return {k: (b, s - 1, v[0].shape[-1]) for k, v in store.items()}
+
+
+def fisher_of(model, params, tok, tc, shapes=None) -> dict:
+    """``fisher_capture`` of the training loss on the batch ``tok`` at every
+    tap (``shapes``: default ``tap_shapes``)."""
+    from repro_torch.core import calibration
+    from repro_torch.train.trainer import loss_fn
+
+    shapes = shapes or tap_shapes(model, params, tok)
+    return calibration.fisher_capture(lambda: loss_fn(model, params, {"tokens": tok}, tc)[0],
+                                      shapes, device=tok.device)
+
+
 def phase_train_card_vs_cpu(dev) -> bool:
     """Phase 17a: 3 train steps of a 2-layer full-width llama3_2_1b in
     float32 on the card and on the CPU from one init (made on the CPU and
     copied), on the same 2 x 32-token batches: each step's loss within
     ``TRAIN_LOSS_RTOL``, each parameter within ``TRAIN_PARAM_REL_L2``; TF32
     must be off. Two card runs are compared bit for bit and reported, not
-    gated: the embedding's backward accumulates with atomics."""
+    gated: the embedding's backward accumulates with atomics. The Fisher
+    pass of the first batch from the init (``remat="block"``, so each
+    block's taps fire again in the recompute, on autograd's own thread on
+    the card) at every tap name within ``FISHER_REL_L2`` of the CPU's, and
+    nonzero."""
     import copy
 
     import torch
@@ -2890,9 +2928,13 @@ def phase_train_card_vs_cpu(dev) -> bool:
     pipe = TokenPipeline(ByteCorpus().tokens, DataConfig(seq_len=32, global_batch=2, seed=0))
     batches = [pipe.next_batch()["tokens"] for _ in range(3)]
     step = make_train_step(model, example_train_config(10))
-    runs, seconds = {}, {}
+    runs, seconds, fisher = {}, {}, {}
     for name, device in (("cpu", "cpu"), ("card", dev), ("card_again", dev)):
         params = copy.deepcopy(init).to(device)
+        if name != "card_again":
+            fisher[name] = {k: f.cpu() for k, f in fisher_of(
+                model, params, torch.from_numpy(batches[0]).to(device),
+                example_train_config(10)).items()}
         state = {"params": params, "opt": adamw_init(dict(params.named_parameters()))}
         losses = []
         t0 = time.perf_counter()
@@ -2910,14 +2952,19 @@ def phase_train_card_vs_cpu(dev) -> bool:
     worst = max(param_rel, key=param_rel.get)
     bit_equal = card_l == again_l and all(torch.equal(card_p[n], again_p[n]) for n in card_p)
     no_tf32 = not tf32["matmul"] and not tf32["cudnn"] and tf32["precision"] == "highest"
+    fisher_rel = {k: rel_l2(fisher["card"][k], f) for k, f in fisher["cpu"].items()}
+    fisher_ok = (set(fisher["card"]) == set(fisher["cpu"]) == set(FISHER_TAPS)
+                 and all(bool(f.any()) for f in fisher["cpu"].values())
+                 and max(fisher_rel.values()) <= FISHER_REL_L2)
     ok = (max(loss_rtol) <= TRAIN_LOSS_RTOL and param_rel[worst] <= TRAIN_PARAM_REL_L2
-          and no_tf32 and all(math.isfinite(x) for x in card_l))
+          and no_tf32 and all(math.isfinite(x) for x in card_l) and fisher_ok)
     emit("train_card_vs_cpu", arch=model.cfg.arch_id, layers=2, d_model=model.cfg.d_model,
          dtype="float32", batch=[2, 32], losses_card=card_l, losses_cpu=cpu_l,
          loss_rtol=loss_rtol, loss_bound=TRAIN_LOSS_RTOL,
          worst_param=worst, worst_param_rel_l2=param_rel[worst], param_bound=TRAIN_PARAM_REL_L2,
          worst_update_rel_l2=max(update_rel.values()), tf32=tf32,
-         card_runs_bit_equal=bit_equal, seconds=seconds, ok=ok)
+         card_runs_bit_equal=bit_equal, seconds=seconds, remat=model.cfg.remat,
+         fisher_rel_l2=fisher_rel, fisher_bound=FISHER_REL_L2, ok=ok)
     return ok
 
 
@@ -3015,7 +3062,6 @@ def phase_calibrate_serve(dev, model, params, corpus, smi_line) -> dict:
     import torch
 
     import repro_torch.core.kernel_routing as kr
-    from repro_torch.core import calibration
     from repro_torch.core.artifact import load_calib_stats, load_quantized, save_quantized
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.examples import serve_quantized as sq
@@ -3024,7 +3070,6 @@ def phase_calibrate_serve(dev, model, params, corpus, smi_line) -> dict:
     from repro_torch.models.model import quantize_model
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.speculative import DEFAULT_DRAFT_SPEC, SpeculativeConfig
-    from repro_torch.train.trainer import loss_fn
 
     cfg = model.cfg
     tc = example_train_config(TRAIN_STEPS)
@@ -3043,16 +3088,10 @@ def phase_calibrate_serve(dev, model, params, corpus, smi_line) -> dict:
     res["captured"] = {k: list(v.shape) for k, v in acts.items()}
     b = TokenPipeline(corpus.tokens, DataConfig(seq_len=64, global_batch=4, seed=9)).next_batch()
     tok = torch.from_numpy(b["tokens"]).to(dev)
-
-    def capture_one():
-        with torch.no_grad(), calibration.capture() as store:
-            model.apply(params, {"tokens": tok[:, :-1]})
-        return {k: (4, 64, v[0].shape[-1]) for k, v in store.items()}
-
-    shapes = timed("capture_batch_s", capture_one)
-    fisher = timed("fisher_batch_s", lambda: calibration.fisher_capture(
-        lambda: loss_fn(model, params, {"tokens": tok}, tc)[0], shapes, device=dev))
-    out["fisher"] = all(bool(torch.isfinite(f).all()) and bool(f.any()) for f in fisher.values())
+    shapes = timed("capture_batch_s", lambda: tap_shapes(model, params, tok))
+    fisher = timed("fisher_batch_s", lambda: fisher_of(model, params, tok, tc, shapes))
+    out["fisher"] = (set(fisher) == set(FISHER_TAPS) and all(
+        bool(torch.isfinite(f).all()) and bool(f.any()) for f in fisher.values()))
     del fisher
     qp = timed("ptq_s", lambda: quantize_model(model, params, sq.SPEC, calib=acts))
     build_dir = ROOT / "build"

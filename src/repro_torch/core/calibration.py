@@ -14,7 +14,10 @@ Fisher: the empirical Fisher diagonal of an activation x is E[(dL/dx)^2].
 with respect to it, so the gradient is dL/dx, summed over the layers that
 share the name. JAX's ``dense_apply`` taps only concrete arrays, so under
 ``jax.grad`` only the taps before the first perturbed one fire there; the
-port perturbs every tap.
+port perturbs every tap (the tests hold it against JAX's ``dense_apply``
+with that guard lifted). A remat forward (``TransformerLM``) runs each
+block's recompute in the context of its forward, so the recompute's taps
+read the same perturbations on autograd's own thread.
 """
 
 from __future__ import annotations
@@ -32,10 +35,8 @@ __all__ = ["tap", "capture", "captured", "fisher_capture", "calibrate_codebooks"
 
 _CAPTURE: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "repro_torch_calibration_capture", default=None)
-# the perturbations of a running fisher_capture: a module global, not a
-# context variable, because remat recomputes the taps inside the backward
-# pass, which runs on the autograd engine's own thread for CUDA tensors
-_EPS: dict | None = None
+_EPS: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "repro_torch_calibration_eps", default=None)
 
 
 def tap(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,7 @@ def tap(name: str, x: torch.Tensor) -> torch.Tensor:
     copy of ``x`` as (tokens, K) on its device; inside
     :func:`fisher_capture`'s forward, adds the named zero perturbation so
     its gradient is dL/dx."""
-    eps = _EPS
+    eps = _EPS.get()
     if eps is not None and name in eps:
         x = x + eps[name].to(x.dtype)
     store = _CAPTURE.get()
@@ -82,15 +83,14 @@ def fisher_capture(loss_fn: Callable[[], torch.Tensor],
     device = resolve_device(device)
     zeros = {k: torch.zeros(s, dtype=torch.float32, device=device, requires_grad=True)
              for k, s in eps_shapes.items()}
-    global _EPS
     names = list(zeros)
-    outer, _EPS = _EPS, zeros
-    try:  # the perturbations stay set through the backward: remat recomputes the taps
+    token = _EPS.set(zeros)
+    try:
         with torch.enable_grad():
-            grads = torch.autograd.grad(loss_fn(), [zeros[k] for k in names],
-                                        allow_unused=True)
+            loss = loss_fn()
     finally:
-        _EPS = outer
+        _EPS.reset(token)
+    grads = torch.autograd.grad(loss, [zeros[k] for k in names], allow_unused=True)
     return {k: torch.zeros_like(zeros[k]) if g is None else torch.square(g)
             for k, g in zip(names, grads)}
 

@@ -14,6 +14,7 @@ paged pools) are a list of per-layer dicts.
 
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
@@ -101,7 +102,10 @@ class TransformerLM(nn.Module):
 
         Without caches and with autograd on, ``cfg.remat`` ``"block"`` or
         ``"double"`` recomputes each block in the backward pass
-        (``torch.utils.checkpoint``), as JAX checkpoints its block."""
+        (``torch.utils.checkpoint``), as JAX checkpoints its block. The
+        recompute runs in a copy of the forward's context, so calibration's
+        taps read there what they read in the forward, also on the thread
+        that runs the backward."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
@@ -116,7 +120,8 @@ class TransformerLM(nn.Module):
         aux_total = None
         for i, block in enumerate(self.blocks):
             if remat:
-                x, c, aux = checkpoint(block, x, cfg, positions, None, use_reentrant=False)
+                x, c, aux = checkpoint(contextvars.copy_context().run, block, x, cfg, positions,
+                                       None, use_reentrant=False)
             else:
                 x, c, aux = block(x, cfg, positions, None if caches is None else caches[i])
             if caches is not None:

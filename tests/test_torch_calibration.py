@@ -9,7 +9,9 @@ Tolerances, each stated where it is asserted:
 
 * captured activations: 1e-5 relative L2 per tap (float32 forwards in two
   orders; rows in the same order);
-* Fisher: 1e-5 relative L2 (float32 backward in two orders);
+* Fisher: 1e-5 relative L2 per tap (float32 backward in two orders), with
+  and without remat, against JAX's ``dense_apply`` with its tracer guard
+  lifted in the test (see ``_fisher_setup``);
 * activation codebooks: rtol 1e-5, atol 1e-5 (K-Means sums in two orders,
   a few ulps apart, as ``test_torch_quickstart.py`` states); static
   thresholds within one ulp (``jnp.quantile``'s linear interpolation);
@@ -33,6 +35,7 @@ from repro.core import QLinearConfig as JCfg  # noqa: E402
 from repro.core import QuantSpec as JSpec  # noqa: E402
 from repro.core.artifact import load_quantized as j_load  # noqa: E402
 from repro.core.artifact import save_quantized as j_save  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro.models.model import build as j_build  # noqa: E402
 from repro.models.model import quantize_model as j_quantize_model  # noqa: E402
 from repro.models.model import unstack_for_capture as j_unstack  # noqa: E402
@@ -61,9 +64,10 @@ def _rel_l2(got, want) -> float:
 
 
 @functools.cache
-def _setup(arch: str, n_layers: int | None = None, seed: int = 0):
-    """(JAX model, JAX params, port model, port params) of a smoke config."""
-    jcfg, tcfg = j_smoke(arch), t_smoke(arch)
+def _setup(arch: str, n_layers: int | None = None, seed: int = 0, remat: str = "none"):
+    """(JAX model, JAX params, port model, port params) of a smoke config;
+    ``remat`` sets the port's (JAX's unstacked capture forward has none)."""
+    jcfg, tcfg = j_smoke(arch), dataclasses.replace(t_smoke(arch), remat=remat)
     if n_layers is not None:
         jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
         tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
@@ -136,30 +140,64 @@ def test_fisher_capture_matches_jax():
     assert not got["unused"].any() and not np.asarray(want["unused"]).any()
 
 
-def test_fisher_through_the_model():
-    """One oasis layer: the q/k/v taps (fed the block's normed input) equal
-    JAX's within 1e-5 relative L2. JAX's ``dense_apply`` taps only concrete
-    arrays, so under ``jax.grad`` its taps after the first perturbed one do
-    not fire and read zero; the port perturbs them all."""
-    jm, jp, tm, port = _setup("oasis_7b", n_layers=1)
+@functools.cache
+def _fisher_setup():
+    """Two oasis layers, a batch, the tap shapes and JAX's Fisher of every
+    tap. JAX's ``dense_apply`` taps only concrete arrays, so under
+    ``jax.grad`` its taps after the first perturbed one would not fire; the
+    JAX side here lifts that guard (``dense_apply`` patched for this call
+    only, the package unedited), so every tap of every layer is perturbed,
+    as the port perturbs them."""
+    jm, jp, _, _ = _setup("oasis_7b", n_layers=2)
     b = _tokens(jm.cfg.vocab_size, 5, (2, 9))
-    tc = dict(warmup_steps=1, total_steps=4)
     ju, jpu = j_unstack(jm, jp)
     with jcal.capture() as store:
         ju.apply(jpu, {"tokens": jnp.asarray(b[:, :-1])})
     shapes = {k: (2, 8, v[0].shape[-1]) for k, v in store.items()}
-    want = jcal.fisher_capture(
-        lambda: jtr.loss_fn(ju, jpu, {"tokens": jnp.asarray(b)}, jtr.TrainConfig(**tc))[0],
-        shapes)
+    tc = jtr.TrainConfig(warmup_steps=1, total_steps=4)
+    guarded = jlayers.dense_apply
+
+    def dense_apply_tapping_tracers(p, x, tap_name=None):
+        if tap_name is not None:
+            x = jcal.tap(tap_name, x)
+        return guarded(p, x)
+
+    jlayers.dense_apply = dense_apply_tapping_tracers
+    try:
+        want = jax.jit(lambda: jcal.fisher_capture(
+            lambda: jtr.loss_fn(ju, jpu, {"tokens": jnp.asarray(b)}, tc)[0], shapes))()
+    finally:
+        jlayers.dense_apply = guarded
+    return b, shapes, {k: np.asarray(v) for k, v in want.items()}
+
+
+def _check_fisher_through_the_model(remat: str):
+    b, shapes, want = _fisher_setup()
+    _, _, tm, port = _setup("oasis_7b", n_layers=2, remat=remat)
+    tc = ttr.TrainConfig(warmup_steps=1, total_steps=4)
     got = tcal.fisher_capture(
-        lambda: ttr.loss_fn(tm, port, {"tokens": torch.from_numpy(b)}, ttr.TrainConfig(**tc))[0],
+        lambda: ttr.loss_fn(tm, port, {"tokens": torch.from_numpy(b)}, tc)[0],
         shapes, device="cpu")
-    for k in ("attn.q", "attn.k", "attn.v"):
-        assert np.asarray(want[k]).any()
-        assert _rel_l2(got[k].numpy(), want[k]) < 1e-5, k
-    for k in ("attn.o", "mlp.wi", "mlp.wd"):
-        assert not np.asarray(want[k]).any() and got[k].any(), k
+    assert set(got) == set(want) == {"attn.q", "attn.k", "attn.v", "attn.o", "mlp.wi",
+                                      "mlp.wd"}
+    for k in want:
+        assert want[k].any(), k
+        assert _rel_l2(got[k].numpy(), want[k]) < 1e-5, (k, _rel_l2(got[k].numpy(), want[k]))
     assert all(not p.requires_grad for p in port.parameters())
+
+
+def test_fisher_through_the_model():
+    """Two oasis layers, every tap (q, k, v, o, wi, wd; both layers' dL/dx
+    summed under one name) within 1e-5 relative L2 of JAX's (see
+    ``_fisher_setup``)."""
+    _check_fisher_through_the_model("none")
+
+
+def test_fisher_through_the_model_under_remat():
+    """The same with ``remat="block"``: each block is recomputed in the
+    backward pass, after ``fisher_capture`` has reset its perturbations, so
+    the recompute's taps read them only from the forward's context."""
+    _check_fisher_through_the_model("block")
 
 
 def test_calibrate_codebooks_matches_jax():

@@ -21,6 +21,7 @@ Tolerances, each stated where it is asserted:
   backward in two orders).
 """
 
+import dataclasses
 import functools
 import json
 
@@ -31,6 +32,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
+from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 from repro.checkpoint import checkpointer as jckpt  # noqa: E402
 from repro.configs.base import get_smoke_config as j_smoke  # noqa: E402
@@ -42,6 +44,7 @@ from repro.train import trainer as jtr  # noqa: E402
 from repro_torch.checkpoint import checkpointer as tckpt  # noqa: E402
 from repro_torch.configs.base import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
+from repro_torch.models import transformer as ttransformer  # noqa: E402
 from repro_torch.models.model import build, params_from_numpy, tree_from_params  # noqa: E402
 from repro_torch.optim import adamw as topt  # noqa: E402
 from repro_torch.train import trainer as ttr  # noqa: E402
@@ -70,15 +73,15 @@ def _rel_l2(got, want) -> float:
 
 
 @functools.cache
-def _jax_model(arch):
+def _jax_model(arch, remat="none"):
     """A smoke config's JAX model and its initial parameters (seed 0)."""
-    cfg = j_smoke(arch)
+    cfg = dataclasses.replace(j_smoke(arch), remat=remat)
     model = j_build(cfg)
     return model, model.init(jax.random.PRNGKey(0))
 
 
-def _port(arch, jparams):
-    cfg = t_smoke(arch)
+def _port(arch, jparams, remat="none"):
+    cfg = dataclasses.replace(t_smoke(arch), remat=remat)
     return build(cfg), params_from_numpy(_np_tree(jparams), cfg, device="cpu")
 
 
@@ -237,14 +240,21 @@ def _batches(corpus, n, seq_len=32, batch=4):
     return [pipe.next_batch()["tokens"] for _ in range(n)]
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_three_train_steps_match_jax(corpora, microbatches):
+@pytest.mark.parametrize("microbatches,remat", [(1, "none"), (2, "none"), (1, "block")],
+                         ids=["1", "2", "1-remat"])
+def test_three_train_steps_match_jax(corpora, microbatches, remat, monkeypatch):
     """oasis_7b smoke from JAX's initial parameters on the same batches:
     per-step loss within 1e-5 relative, parameters and both moments within
-    1e-4 relative L2 per leaf (see the module docstring)."""
+    1e-4 relative L2 per leaf (see the module docstring). ``remat="block"``
+    recomputes each block in the backward pass on both sides (JAX's
+    ``jax.checkpoint`` over its scanned block, the port's
+    ``torch.utils.checkpoint`` per block)."""
     tc_kw = dict(optimizer=jopt.AdamWConfig(lr=2e-3), microbatches=microbatches, **TC)
-    jmodel, jparams = _jax_model("oasis_7b")
-    tmodel, port = _port("oasis_7b", jparams)
+    jmodel, jparams = _jax_model("oasis_7b", remat)
+    tmodel, port = _port("oasis_7b", jparams, remat)
+    recomputed = []  # the port's blocks that went through torch.utils.checkpoint
+    monkeypatch.setattr(ttransformer, "checkpoint",
+                        lambda *a, **kw: recomputed.append(1) or checkpoint(*a, **kw))
     jstep = jax.jit(jtr.make_train_step(jmodel, jtr.TrainConfig(**tc_kw)))
     tstep = ttr.make_train_step(tmodel, ttr.TrainConfig(**tc_kw))
     jstate = {"params": jparams, "opt": jopt.adamw_init(jparams)}
@@ -256,6 +266,8 @@ def test_three_train_steps_match_jax(corpora, microbatches):
         np.testing.assert_allclose(tm["lr"].item(), float(jm["lr"]), rtol=0,
                                    atol=2e-3 * 2.0**-23)  # the schedule's cos ulp
     assert all(not p.requires_grad for p in port.parameters())  # serving params again
+    # every block of every step (and microbatch) under remat, none without
+    assert len(recomputed) == (3 * microbatches * 2 if remat == "block" else 0)
     for key, want_tree, values in (("params", jstate["params"], None),
                                    ("m", jstate["opt"]["m"], tstate["opt"]["m"]),
                                    ("v", jstate["opt"]["v"], tstate["opt"]["v"])):
