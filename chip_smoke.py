@@ -131,8 +131,8 @@ Phases, each printing one JSON line:
               engine (``moe_graph_step`` bit-equal to eager, exact launches;
               an eager engine's run is cut for time),
               qwen2_moe_a2_7b at 2 layers card vs CPU and served.
-15. ssm, hybrid -- falcon_mamba_7b whole (64 layers, 8 rows of 16 cells)
-              and recurrentgemma_2b whole (26 layers, 8 rows of 32 cells, 2
+15. ssm, hybrid -- falcon_mamba_7b at 16 of its 64 layers (8 rows of 16
+              cells; the whole depth cut for time) and recurrentgemma_2b whole (26 layers, 8 rows of 32 cells, 2
               prompts past its 2048 window) under the main spec with int4
               state: three packed steps graph against eager (logits and
               pools, state included, bit for bit), then each serves on the
@@ -178,6 +178,23 @@ Phases, each printing one JSON line:
               --speculative --telemetry quality --metrics-json ...`` and
               ``train_and_quantize --steps 60`` as subprocesses on the card:
               exit 0 and their OK and table lines.
+18. vlm_kernels -- phase 3b's cases at llama3_2_vision_11b's shapes: the
+              fused LUT-GEMM (wq / wo 4096 x 4096, wk / wv N = 1024, wi N =
+              28672, the W8 wd at K = 14336) and Orizuru detection (4096 at
+              k = 20, 14336 at k = 72) on 8 decode and 8 x 128 prefill rows,
+              and on zero rows (a served cross block's wo input).
+    vlm_model -- one group (4 self blocks + the gated cross block) at full
+              width in float32, gates in [0.3, 0.9], card against CPU over
+              1601 random image tokens: the uncached forward and an int4
+              ring prefill + 3 decode steps within ``FAMILY_BOUND``,
+              teacher-forced per layer within ``FORCED_BOUND``.
+    vlm_serve -- the whole model (40 layers, gates in [0.3, 0.9]) under the
+              main spec on the fixed-slot engine, its only path: 2 requests
+              graph against eager (three decode steps' logits, rings and
+              cross caches bit for bit; 8 tokens equal), then 8 prompts x 32
+              tokens on the graph engine with exact launches (224 fused
+              LUT-GEMMs and 224 top-k per forward), no plain route, the
+              cross caches still zero (never written, as in JAX); a profile.
 
 ``--only group,...`` runs some groups (``PHASE_GROUPS``) and prints no
 result line. A ``timing`` line gives every phase's seconds.
@@ -337,7 +354,8 @@ def act_indices(x, s, bounds, mul_form):
     return rank(x.float() / s, bounds)
 
 
-def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50, w_bits=4):
+def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50, w_bits=4,
+              zero_rows=False):
     """A LUT-GEMM kernel against its plain version: the fused kernel
     (bucketize in the tile) or, with ``fused=False``, the index kernel on
     plain activation indices. Two checks, then the times. (1) Gaussian
@@ -355,7 +373,9 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50,
     a fixed order). Bounds: the float32 one of the CUDA-core design
     (operations at 67 TFLOP/s) and the 3xTF32 one of the tensor-core design
     (three products per term at 495 TFLOP/s). ``w_bits`` < 4 gives the nibble
-    tier a smaller weight codebook (W3: 8 entries, as the draft model's)."""
+    tier a smaller weight codebook (W3: 8 entries, as the draft model's).
+    ``zero_rows`` zeroes every other activation row (the input of a vlm
+    cross block's ``wo`` in serving is all zeros: it attends zero K/V)."""
     import torch
 
     from repro_torch.core.codebook import boundaries_from_centroids
@@ -381,6 +401,8 @@ def gemm_case(dev, gen, m, k, n, x_dtype, byte_packed, tag, fused=True, reps=50,
     def inputs():
         x = torch.randn((m, k), generator=gen, device=dev)
         x[:, :: max(1, k // 7)] *= 12.0  # a few outlier channels
+        if zero_rows:
+            x[::2] = 0.0
         x = x.to(x_dtype)
         s = torch.sqrt(torch.mean(x.float() ** 2, dim=-1, keepdim=True)).clamp(min=1e-12)
         w = random_packed(k, n, n_w, byte_packed, gen)
@@ -483,8 +505,8 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
     top-k), equal to its plain version given the same scale: indices and
     channels exactly, values bit for bit with NaN equal to NaN, on the card
     and on the CPU; two launches must give the same bits. Kinds: ``normal``,
-    ``duplicates``, ``equal`` rows (one with +-inf) and ``specials``
-    (:func:`special_rows`). The plain version sorts the kernels' order key,
+    ``duplicates``, ``equal`` rows (one with +-inf), ``specials``
+    (:func:`special_rows`) and ``zeros`` (every other row all +0.0). The plain version sorts the kernels' order key,
     so it ranks every NaN alike, above +inf, on both devices."""
     import torch
 
@@ -516,6 +538,9 @@ def topk_case(dev, gen, m, n, k, kind, mul_form=None, reps=100):
                 x[:, :: max(1, n // 7)] *= 12.0
         elif kind == "duplicates":
             x = torch.randint(-3, 4, (m, n), generator=gen, device=dev).float()
+        elif kind == "zeros":
+            x = torch.randn((m, n), generator=gen, device=dev)
+            x[::2] = 0.0
         elif kind == "specials":
             x = special_rows(m, n, k, int(torch.randint(0, 2**31, (1,), generator=gen,
                                                        device=dev)), dev)
@@ -920,11 +945,13 @@ def packed_step_logits(model, params, device, prompts, kv_dtype=None):
 
 
 class LayerTap:
-    """Hooks on a model's blocks for one packed step: each block's input and
-    output at the valid cells, float32 on the CPU (``ins``, ``outs``). With
-    ``inputs`` (another run's ``ins``), each block's input is replaced by it
-    before the block runs: teacher forcing, so that every layer starts from
-    the same input and differences do not compound across layers."""
+    """Hooks on a model's blocks for one packed step (or any forward): each
+    block's input and output at the valid cells, float32 on the CPU
+    (``ins``, ``outs``). With ``inputs`` (another run's ``ins``), each
+    block's input is replaced by it before the block runs: teacher forcing,
+    so that every layer starts from the same input and differences do not
+    compound across layers. A vlm's blocks are hooked in the order they
+    run (``VisionLM.layers``)."""
 
     def __init__(self, inputs=None):
         self.inputs, self.ins, self.outs = inputs, [], []
@@ -937,7 +964,8 @@ class LayerTap:
         @contextlib.contextmanager
         def hooked():
             hooks = []
-            for i, block in enumerate(params.blocks):
+            blocks = params.layers() if hasattr(params, "layers") else params.blocks
+            for i, block in enumerate(blocks):
                 def pre(_mod, args, i=i):
                     x = args[0]
                     if self.inputs is not None:
@@ -1315,15 +1343,20 @@ def ring_config(cache_len: int = 1024, spec=None):
 
 def ring_steps(engine, prompts, n_steps: int):
     """Prefill one left-padded batch on a fixed-slot engine, then ``n_steps``
-    decode steps; returns each step's logits and every ring tensor after."""
+    decode steps; returns each step's logits and every ring tensor after (a
+    vlm's cross caches too)."""
     import torch
+
+    from repro_torch.serving.engine import image_inputs
 
     plen = max(len(p) for p in prompts)
     pads = [plen - len(p) for p in prompts]
     toks = torch.tensor([[0] * n + p for n, p in zip(pads, prompts)], dtype=torch.int32,
                         device=engine.device)
     caches = engine._ring_caches(pads)
-    tok, caches, _ = engine._prefill(engine.params, caches, {"tokens": toks})
+    tok, caches, _ = engine._prefill(engine.params, caches,
+                                     {"tokens": toks, **image_inputs(engine.model, len(prompts),
+                                                                      engine.device)})
     logits = []
     for pos in range(plen, plen + n_steps):
         tok, step_logits = engine._decode_step(caches, tok, pos)
@@ -1359,11 +1392,13 @@ def phase_ring_step(model, params, n_steps: int = 3) -> bool:
     return ok
 
 
-def ring_once(model, params, prompts, graph: bool) -> tuple[list, dict, object]:
-    """Serve ``prompts`` x 64 new tokens on the fixed-slot engine (8 slots,
+def ring_once(model, params, prompts, graph: bool, new: int = 64, per_layer=RING_PER_LAYER,
+              routes=FUSED_ROUTES, layers: int | None = None) -> tuple[list, dict, object]:
+    """Serve ``prompts`` x ``new`` tokens on the fixed-slot engine (8 slots,
     int4 ring of 1024), the decode step as a CUDA graph or eager, with every
-    count set to 0 first; prefills are timed apart (a sync on each side).
-    Returns the tokens, the result and the engine."""
+    count set to 0 first (each forward launching ``per_layer`` per layer of
+    ``layers``, default the model's); prefills are timed apart (a sync on
+    each side). Returns the tokens, the result and the engine."""
     import torch
 
     from repro_torch.serving.engine import ServingEngine
@@ -1385,15 +1420,16 @@ def ring_once(model, params, prompts, graph: bool) -> tuple[list, dict, object]:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=64)
+    outs = engine.generate(prompts, max_new_tokens=new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = engine.stats
-    counts = read_counts(RING_PER_LAYER, st["prefills"] + st["steps"], model.cfg.n_layers)
+    counts = read_counts(per_layer, st["prefills"] + st["steps"], layers or model.cfg.n_layers,
+                         routes)
     capture = st["graph_capture_s"]
     decode_s = wall - sum(prefill_s) - (capture or 0.0)
     n_tok = sum(len(o) for o in outs)
-    ok = (len(outs) == len(prompts) and all(len(o) == 64 for o in outs)
+    ok = (len(outs) == len(prompts) and all(len(o) == new for o in outs)
           and all(0 <= t < model.cfg.vocab_size for o in outs for t in o)
           and counts["counts_ok"] and (capture is not None) == graph)
     return outs, dict(graph=graph, wall_s=wall, tokens_per_s=n_tok / wall,
@@ -2573,16 +2609,21 @@ def short_prompts(vocab: int, n: int = 8, length: int = 24) -> list[list[int]]:
     return [p[:length] for p in serve_prompts(vocab)[:n]]
 
 
+SSM_SERVE_LAYERS = 16  # falcon-mamba's serve phase: 16 of its 64 layers (cut for time)
+
+
 def phase_ssm(dev, smi_line) -> bool:
-    """Phase 15a: falcon-mamba-7b whole (64 layers, d 4096, d_inner 8192,
-    state 16, conv 4, dt_rank 256, vocab 65024), the main spec, 8 slots of
+    """Phase 15a: falcon-mamba-7b at its published widths (d 4096, d_inner
+    8192, state 16, conv 4, dt_rank 256, vocab 65024) and
+    ``SSM_SERVE_LAYERS`` of its 64 layers (the whole depth was cut for
+    time: every layer runs the same code), the main spec, 8 slots of
     16-cell rows (a slot's state goes once per row, so 16 prefill tokens per
     slot and step): three packed steps graph against eager (logits and
     pools, state included, bit for bit), then the 16 serve requests x 64
     tokens on the graph engine: per step and layer 4 fused LUT-GEMMs and 4
     top-k launches, no plain route (an eager engine's whole run is cut for
     time; ``ssm_graph_step`` holds graph against eager)."""
-    model, qp, ptq_s, _ = recurrent_model("falcon_mamba_7b", dev)
+    model, qp, ptq_s, _ = recurrent_model("falcon_mamba_7b", dev, SSM_SERVE_LAYERS)
     sc = recurrent_sc(SSM_SEG)
     step_ok = phase_graph_step("ssm_graph_step", model, qp, sc,
                                prompts=short_prompts(model.cfg.vocab_size))
@@ -2798,7 +2839,9 @@ def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 
     extra run (4 requests, ``new_tokens`` new tokens) on a serve phase's
     engine (on the fixed-slot engine a step is a forward: a prefill or a
     decode step, so the ring's profile runs 40 new tokens, 39 decode steps
-    to one prefill). For the
+    to one prefill; its decode graph for the 4-row batch is captured before
+    the profile starts, so no capture's warm-up is in it). ``profiler_s``
+    is the profiler's own start, stop and analysis. For the
     graph engine, ``kernels_seen`` says whether the profiler saw the LUT-GEMM
     or attention kernels that graph replays launch."""
     import torch
@@ -2806,10 +2849,13 @@ def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 
 
     gen = torch.Generator().manual_seed(4)
     prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist() for n in (40, 70, 100, 130)]
+    if not engine.paged:
+        engine.generate(prompts, max_new_tokens=2)  # captures the 4-row decode graph
     # steps: the scheduler's packed steps, or the fixed-slot engine's forwards
     # (prefills and decode steps)
     count = lambda st: st["packed_steps"] if engine.paged else st["prefills"] + st["steps"]
     steps0 = count(engine.stats)
+    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2819,14 +2865,19 @@ def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 
     steps = count(engine.stats) - steps0
     # kernel events only: an aten op's row repeats the time of its kernels,
     # and a telemetry span's device row (a user annotation) the time of the
-    # kernels inside it
-    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and not (getattr(e, "is_user_annotation", False) or e.key in TELEMETRY_SPANS)]
-    rows.sort(reverse=True)
+    # kernels inside it. Summed from the raw events: ``key_averages`` builds
+    # a Python event tree first, ~0.5 ms an event, tens of seconds a phase.
+    sums: dict[str, tuple[float, int]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0
+                and not e.is_user_annotation() and e.name() not in TELEMETRY_SPANS):
+            us, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    rows = sorted(((us, k, n) for k, (us, n) in sums.items()), reverse=True)
+    profiler_s = time.perf_counter() - t_all - wall  # the profiler's own start, stop, analysis
     busy_s = sum(r[0] for r in rows) / 1e6
     attn = [(us, c) for us, k, c in rows if "paged_attn" in k]
-    emit(phase, engine=label, wall_s=wall, packed_steps=steps,
+    emit(phase, engine=label, wall_s=wall, profiler_s=profiler_s, packed_steps=steps,
          step="packed step" if engine.paged else "forward: prefill or decode step",
          ms_per_step=wall / steps * 1e3, device_busy_s=busy_s,
          device_ms_per_step=busy_s * 1e3 / steps,
@@ -2835,6 +2886,247 @@ def phase_profile(phase: str, engine, vocab: int, label: str, new_tokens: int = 
          attention_device_ms_per_step=sum(us for us, _ in attn) / 1e3 / steps,
          attention_calls=sum(c for _, c in attn),
          top=[{"op": k, "device_ms": us / 1e3, "calls": c} for us, k, c in rows[:12]])
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the vlm family (llama3_2_vision_11b)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "llama3_2_vision_11b"
+VLM_NEW_TOKENS = 32
+
+
+def vlm_per_forward(cfg) -> tuple[dict, dict]:
+    """Fused LUT-GEMM and top-k launches (and their dispatches) of one
+    cached vlm forward, prefill or decode step: 6 per self block, 4 per
+    cross block (q, o, wi, wd: the cross K/V come from the cache)."""
+    per = cfg.cross_attn_every
+    n = cfg.n_layers // per * (6 * (per - 1) + 4)
+    return {"fused_lut_gemm": n, "topk_outlier": n}, {"gemm_kernel": n, "detect_kernel": n}
+
+
+def gate_cross_blocks(params, seed: int = 5) -> list[float]:
+    """Both gates of every cross block drawn in [0.3, 0.9], in place: the
+    init sets them to 0, which makes every cross block the identity and
+    would hide a fault in its attention or MLP. Returns the gates."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    gates = []
+    with torch.no_grad():
+        for blk in params.cross_blocks:
+            for p in (blk.attn.gate, blk.mlp_gate):
+                v = float(torch.rand((), generator=gen)) * 0.6 + 0.3
+                p.fill_(v)
+                gates.append(v)
+    return gates
+
+
+def phase_kernels_vlm(dev):
+    """Phase 3b's vlm cases: the fused LUT-GEMM at the vlm's projections
+    (wq, wo 4096 x 4096; wk, wv N = 1024; wi N = 28672; the W8 wd at K =
+    14336) on 8 decode rows and 8 x 128 prefill rows, wo on rows of which
+    every other is zero (a served cross block's wo input is all zeros), and
+    Orizuru detection on rows of 4096 (k = 20) and 14336 (k = 72), also with
+    zero rows. The same checks and times as phase 3's cases."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    gemm = []
+    for m in (8, 8 * 128):
+        gemm += [gemm_case(dev, gen, m, *shape) for shape in (
+            (4096, 4096, bf, False, f"vlm {m} rows attn/wq,wo bf16"),
+            (4096, 1024, bf, False, f"vlm {m} rows attn/wk,wv N=1024 bf16"),
+            (4096, 28672, bf, False, f"vlm {m} rows mlp/wi N=28672 bf16"),
+            (14336, 4096, bf, True, f"vlm {m} rows mlp/wd W8 K=14336 bf16"))]
+    gemm.append(gemm_case(dev, gen, 8, 4096, 4096, bf, False,
+                          "vlm 8 rows, every other zero, cross/wo bf16", zero_rows=True))
+    topk = [topk_case(dev, gen, m, n, k, "normal") for m in (8, 8 * 128)
+            for n, k in ((4096, 20), (14336, 72))]
+    topk.append(topk_case(dev, gen, 8, 4096, 20, "zeros"))
+    return {"fused_lut_gemm": gemm, "topk_outlier": topk}
+
+
+def vlm_forward(model, params, dev, tok, img, positions=None, caches=None, tap=None):
+    """One forward of ``tok`` (B, S) over ``img`` on ``dev``: (logits of
+    every position, float32 on the CPU; caches)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    pos = None if positions is None else torch.as_tensor(positions, dtype=torch.int32,
+                                                          device=dev)
+    hooked = (tap.on(params, np.ones(tuple(tok.shape), bool)) if tap is not None
+              else contextlib.nullcontext())
+    with torch.inference_mode(), hooked:
+        out = model.apply(params, {"tokens": tok.to(dev), "image_embeds": img.to(dev)},
+                          positions=pos, caches=caches)
+    return out.logits.float().cpu(), out.caches
+
+
+def phase_vlm_model(dev) -> bool:
+    """Phase 18a: one group of llama3_2_vision_11b at its published widths
+    (4 self blocks, then the gated cross block; float32, gates in [0.3,
+    0.9]) quantized under the main spec, card against CPU (plain versions)
+    on 2 prompts x 24 tokens over 1601 random image tokens: the uncached
+    forward (the cross wk / wv on 3202 rows) and, on int4 rings, a cached
+    prefill and 3 decode steps fed the CPU's greedy tokens. Whole-model rel
+    L2 of each forward's logits within ``FAMILY_BOUND``; teacher-forced per
+    layer (each block fed the CPU's input, :func:`forced_layers`' figure)
+    within ``FORCED_BOUND`` for the uncached forward and the prefill."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build, quantize_model
+
+    t0 = time.perf_counter()
+    base = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=base.cross_attn_every, param_dtype="float32",
+                              compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(seed=1, device=dev)
+    gates = gate_cross_blocks(params)
+    qcard = quantize_model(model, params, main_spec())
+    del params
+    qcpu = copy.deepcopy(qcard).to("cpu")
+    gen = torch.Generator().manual_seed(21)
+    tok = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, dtype=torch.int32)
+    img = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=gen)
+    rel = lambda a, b: (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+    kinds = [type(b).__name__ for b in qcard.layers()]
+
+    def forced(cpu_tap, card_tap):
+        return [dict(layer=i, kind=k, output_rel_l2=rel(card_tap.outs[i], cpu_tap.outs[i]),
+                     delta_rel_l2=rel(card_tap.outs[i] - cpu_tap.ins[i],
+                                      cpu_tap.outs[i] - cpu_tap.ins[i]))
+                for i, k in enumerate(kinds)]
+
+    rings = lambda d: model.init_caches(2, 64, torch.float32, quantized=True, device=d)
+    # the uncached forward
+    cpu_tap = LayerTap()
+    cpu_logits, _ = vlm_forward(model, qcpu, "cpu", tok, img, tap=cpu_tap)
+    card_logits, _ = vlm_forward(model, qcard, dev, tok, img)
+    card_tap = LayerTap(cpu_tap.ins)
+    vlm_forward(model, qcard, dev, tok, img, tap=card_tap)
+    uncached = dict(rel_l2=rel(card_logits, cpu_logits),
+                    finite=bool(torch.isfinite(card_logits).all()),
+                    layers=forced(cpu_tap, card_tap))
+    # a cached prefill and 3 decode steps, then the prefill teacher-forced
+    s = tok.shape[1]
+    cpu_tap = LayerTap()
+    cpu_c, card_c = rings("cpu"), rings(dev)
+    steps, t, positions = [], tok, torch.arange(s)
+    for i in range(4):
+        want, cpu_c = vlm_forward(model, qcpu, "cpu", t, img, positions, cpu_c,
+                                  tap=cpu_tap if i == 0 else None)
+        got, card_c = vlm_forward(model, qcard, dev, t, img, positions, card_c)
+        steps.append(dict(step="prefill" if i == 0 else f"decode {i}",
+                          rel_l2=rel(got[:, -1], want[:, -1]),
+                          argmax_agreement=(got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                          .float().mean().item(), finite=bool(torch.isfinite(got).all())))
+        t, positions = want[:, -1].argmax(-1, keepdim=True).int(), torch.tensor([s + i])
+    card_tap = LayerTap(cpu_tap.ins)
+    vlm_forward(model, qcard, dev, tok, img, torch.arange(s), rings(dev), tap=card_tap)
+    cached = dict(steps=steps, prefill_layers=forced(cpu_tap, card_tap))
+    worst = max([uncached["rel_l2"]] + [x["rel_l2"] for x in steps])
+    forced_worst = max(x["delta_rel_l2"] for x in uncached["layers"] + cached["prefill_layers"])
+    ok = (uncached["finite"] and all(x["finite"] for x in steps) and worst <= FAMILY_BOUND
+          and forced_worst <= FORCED_BOUND)
+    emit("vlm_model", arch=VLM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         n_img_tokens=cfg.n_img_tokens, gates=gates, bound=FAMILY_BOUND,
+         forced_bound=FORCED_BOUND, worst_rel_l2=worst, forced_worst_delta_rel_l2=forced_worst,
+         uncached=uncached, cached=cached, seconds=time.perf_counter() - t0, ok=ok)
+    return ok
+
+
+def phase_vlm_serve(dev, smi_line) -> dict:
+    """Phase 18b: llama3_2_vision_11b whole (40 layers: 8 groups of 4 self
+    blocks and a gated cross block; d 4096, GQA 32 / 8, d_ff 14336, vocab
+    128256; gates in [0.3, 0.9]) quantized under the main spec (int4 ring
+    KV) and served on the fixed-slot engine, the path the family takes.
+    First a short graph-vs-eager check on 2 requests: a prefill and three
+    decode steps (logits and every ring and cross cache bit for bit, the
+    cross caches still zero), then 8 new tokens each with equal tokens.
+    Then 8 serve prompts (32-256 tokens) x ``VLM_NEW_TOKENS`` on the graph
+    engine (8 slots, ring of 1024): 224 fused LUT-GEMM and 224 top-k
+    launches per forward, exact, no plain route; and a profile. Returns
+    {check: passed}."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build, quantize_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(VLM_ARCH)
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    gates = gate_cross_blocks(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qp = quantize_model(model, params, main_spec())
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    float_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    per_fwd, routes = vlm_per_forward(cfg)
+    prompts = serve_prompts(cfg.vocab_size)[:8]
+    # graph against eager on 2 requests
+    got, short = {}, {}
+    t0 = time.perf_counter()
+    for graph in (True, False):
+        engine = ServingEngine(model, qp, ring_config(), batch_slots=2, graph=graph)
+        got[graph] = ring_steps(engine, prompts[:2], 3)
+        short[graph] = engine.generate(prompts[:2], max_new_tokens=8)
+        del engine
+    logits_equal = [torch.equal(a, b) for a, b in zip(got[True][0], got[False][0])]
+    rings_equal = all(torch.equal(a[k], b[k]) for a, b in zip(got[True][1], got[False][1])
+                      for k in a)
+    cross_zero = all(not layer[k].any() for layer in got[True][1] for k in ("ck", "cv")
+                     if k in layer)
+    check = dict(steps=3, batch=2, logits_equal=logits_equal, rings_equal=rings_equal,
+                 cross_caches_zero=cross_zero, short_tokens_equal=short[True] == short[False],
+                 short_new_tokens=8, seconds=time.perf_counter() - t0)
+    step_ok = all(logits_equal) and rings_equal and cross_zero and check["short_tokens_equal"]
+    del got
+    # the whole serve on the graph engine
+    _, run, engine = ring_once(model, qp, prompts, True, new=VLM_NEW_TOKENS, per_layer=per_fwd,
+                               routes=routes, layers=1)
+    run["cross_caches_zero"] = all(not layer[k].any() for layer in engine._ring
+                                   for k in ("ck", "cv") if k in layer)
+    phase_profile("vlm_profile", engine, cfg.vocab_size, "graph", new_tokens=8)
+    del engine
+    ok = run["ok"] and run["cross_caches_zero"]
+    emit("vlm_serve", arch=VLM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         n_img_tokens=cfg.n_img_tokens, requests=len(prompts), new_tokens=VLM_NEW_TOKENS,
+         cache_len=1024, kv="int4", gates=gates, init_s=init_s, ptq_s=ptq_s,
+         float_peak_memory_gb=float_peak, launches_per_forward=per_fwd, card=smi_line,
+         graph_vs_eager=check, graph=run, ok=ok and step_ok)
+    return {"vlm graph vs eager": step_ok, "vlm serve": ok}
+
+
+def phase_vlm(dev, smi_line) -> dict:
+    """Phase 18 (group ``vlm``): 18a, then 18b. Returns {check: passed}."""
+    import torch
+
+    out = {}
+    for name, run in (("vlm model", lambda: phase_vlm_model(dev)),
+                      ("vlm serve", lambda: phase_vlm_serve(dev, smi_line))):
+        torch.cuda.empty_cache()
+        try:
+            got = run()
+        except Exception:
+            traceback.print_exc()
+            got = False
+        out.update(got if isinstance(got, dict) else {name: got})
+    return out
 
 
 # "kernels" is phase 3 with 3b; "family_kernels" is 3b alone
@@ -3225,7 +3517,7 @@ def phase_train_group(dev, smi_line) -> dict:
 
 
 PHASE_GROUPS = ("kernels", "family_kernels", "llama", "swa", "dense_variants", "moe",
-                "recurrent", "train")
+                "recurrent", "train", "vlm")
 
 
 def main(argv: list[str]) -> int:
@@ -3289,13 +3581,18 @@ def main(argv: list[str]) -> int:
     if "kernels" in only:
         results = phase_kernels(dev)
         lap("kernels")
-    if only & {"kernels", "family_kernels"}:
-        def family_kernels():
-            for k, cases in phase_kernels_families(dev).items():
+
+    def more_kernels(phase):
+        def run():
+            for k, cases in phase(dev).items():
                 results.setdefault(k, ([], 0))[0].extend(cases)
             return True
+        return run
 
-        guarded("family kernels", family_kernels)
+    if only & {"kernels", "family_kernels"}:
+        guarded("family kernels", more_kernels(phase_kernels_families))
+    if "vlm" in only:
+        guarded("vlm kernels", more_kernels(phase_kernels_vlm))
     for name_k, (cases, _) in results.items():
         failures += [f"{name_k}: {c['case']}" for c in cases if not c["ok"]]
     launches = launches_a = launches_qs = qs_err = None
@@ -3340,6 +3637,7 @@ def main(argv: list[str]) -> int:
                        ("dense_variants", lambda: phase_dense_variants(dev, smi_line)),
                        ("moe", lambda: phase_moe(dev, smi_line)),
                        ("recurrent", lambda: phase_recurrent(dev, smi_line)),
+                       ("vlm", lambda: phase_vlm(dev, smi_line)),
                        ("train", lambda: phase_train_group(dev, smi_line))):
         if group in only:
             torch.cuda.empty_cache()
@@ -3348,7 +3646,8 @@ def main(argv: list[str]) -> int:
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
-    if not {"kernels", "llama", "swa", "dense_variants", "moe", "recurrent", "train"} <= only:
+    if not {"kernels", "llama", "swa", "dense_variants", "moe", "recurrent", "train",
+            "vlm"} <= only:
         print(f"chip_smoke: the groups {sorted(only)} passed (a partial run: no result line)")
         return 0
 

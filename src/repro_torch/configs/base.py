@@ -85,7 +85,7 @@ class ModelConfig:
 
 _ARCHS = ["llama3_2_1b", "oasis_7b", "h2o_danube_1_8b", "nemotron_4_15b",
           "command_r_plus_104b", "musicgen_large", "granite_moe_3b_a800m", "qwen2_moe_a2_7b",
-          "falcon_mamba_7b", "recurrentgemma_2b"]
+          "falcon_mamba_7b", "recurrentgemma_2b", "llama3_2_vision_11b"]
 
 
 def list_archs() -> list[str]:

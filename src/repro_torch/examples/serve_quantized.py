@@ -60,8 +60,11 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true", help="CI: minimal training")
     ap.add_argument("--speculative", action="store_true",
                     help="also serve with a W3 draft artifact + verification")
-    ap.add_argument("--config", default="oasis_7b", choices=list_archs(),
-                    help="smoke config to serve (every ported config)")
+    ap.add_argument("--config", default="oasis_7b",
+                    choices=[a for a in list_archs()
+                             if get_smoke_config(a).input_mode == "tokens"],
+                    help="smoke config to serve (every ported text-only config: the "
+                         "byte corpus has no images)")
     ap.add_argument("--telemetry", default="metrics",
                     choices=["off", "metrics", "trace", "quality"],
                     help="telemetry level ('quality' adds numerics probes)")

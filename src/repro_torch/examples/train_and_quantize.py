@@ -71,8 +71,10 @@ def ce_table(model, params, tc: TrainConfig, corpus: ByteCorpus, acts: dict,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=400)
-    ap.add_argument("--arch", default="llama3_2_1b", choices=list_archs(),
-                    help="smoke config family")
+    ap.add_argument("--arch", default="llama3_2_1b",
+                    choices=[a for a in list_archs()
+                             if get_smoke_config(a).input_mode == "tokens"],
+                    help="smoke config family (text-only: the byte corpus has no images)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)

@@ -6,7 +6,9 @@ Norms are RMSNorm or LayerNorm, reduced in float32 (:func:`norm_apply`);
 positions are rotary (in attention) or sinusoidal (added to the embedding,
 :func:`sinusoidal_positions`); the MLP's activation is gated SiLU or GeLU,
 squared ReLU or plain GeLU (:func:`act_apply`, GeLU in JAX's tanh form).
-Attention runs on three branches:
+Attention runs on three branches, and a fourth for cross-attention over a
+memory (the vlm family's image embeddings: no RoPE, no mask, K/V from the
+memory or read from a filled cross cache):
 
 * no cache (training / full-sequence logits): ``_attn_dispatch`` takes the
   dense softmax, or ``_sdpa_flash`` -- an online-softmax loop over query and
@@ -144,9 +146,14 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 class Attention(nn.Module):
-    def __init__(self, wq: nn.Module, wk: nn.Module, wv: nn.Module, wo: nn.Module):
+    """The four projections; a gated cross-attention (llama3.2-vision) adds
+    its scalar ``gate``, whose tanh scales the output."""
+
+    def __init__(self, wq: nn.Module, wk: nn.Module, wv: nn.Module, wo: nn.Module,
+                 gate: torch.Tensor | None = None):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.gate = None if gate is None else nn.Parameter(gate, requires_grad=False)
 
 
 class MLP(nn.Module):
@@ -452,7 +459,8 @@ def _paged_attend(cache: dict, q, q_pos, softcap: float, window: int = 0) -> tor
 
 
 def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-                    cache: dict | None = None, window: int = 0, layer_tag: str = "attn"):
+                    cache: dict | None = None, memory: torch.Tensor | None = None,
+                    window: int = 0, layer_tag: str = "attn"):
     """GQA attention. Returns (out, cache).
 
     ``positions``: (S,) shared (no cache, ring cache) or (B, S) per row
@@ -462,20 +470,40 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     ring cache may carry ``pad_len`` (B,): keys at positions below it are
     masked. ``layer_tag`` prefixes the projections' probe sites
     (``attn.q`` .. ``attn.o``).
+
+    ``memory`` (B, M, d) makes it cross-attention: keys and values are
+    projected from the memory, with no RoPE, every key visible (positions
+    0, not causal). A cross cache that holds ``ck`` / ``cv`` is read and
+    never written, and the K/V projections are not called: JAX's rule
+    (``repro/models/layers.py``), under which the serving engines, whose
+    cross caches start holding zeros, attend zeros at prefill as at decode.
+    A cache dict without them receives this call's keys and values in
+    bfloat16.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
     softcap = cfg.logit_softcap
+    cross = memory is not None
 
     q = dense_apply(p.wq, x, f"{layer_tag}.q").reshape(b, s, kv, g, hd)
-    k = dense_apply(p.wk, x, f"{layer_tag}.k").reshape(b, s, kv, hd)
-    v = dense_apply(p.wv, x, f"{layer_tag}.v").reshape(b, s, kv, hd)
-    if cfg.pos_embed == "rope":
+    if cross and cache is not None and "ck" in cache:
+        k, v = cache["ck"], cache["cv"]
+    else:
+        src = memory if cross else x
+        k = dense_apply(p.wk, src, f"{layer_tag}.k").reshape(b, -1, kv, hd)
+        v = dense_apply(p.wv, src, f"{layer_tag}.v").reshape(b, -1, kv, hd)
+    if not cross and cfg.pos_embed == "rope":
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
 
-    if cache is not None and "block_tables" in cache:
+    if cross:
+        if cache is not None and "ck" not in cache:
+            cache = {"ck": k.to(torch.bfloat16), "cv": v.to(torch.bfloat16)}
+        k_pos = torch.zeros((k.shape[1],), dtype=torch.int32, device=k.device)
+        o = _attn_dispatch(q, k.to(q.dtype), v.to(q.dtype), positions, k_pos, 0, False,
+                           softcap, cfg)
+    elif cache is not None and "block_tables" in cache:
         if "token_slots" in cache:
             cache = cache | {"block_tables": cache["block_tables"][cache["token_slots"].long()]}
         q_pos = positions if positions.ndim == 2 else positions.expand(b, s)
@@ -489,6 +517,8 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     else:
         o = _attn_dispatch(q, k, v, positions, positions, window, True, softcap, cfg)
     out = dense_apply(p.wo, o.reshape(b, s, h * hd), f"{layer_tag}.o")
+    if p.gate is not None:  # gated cross-attention
+        out = torch.tanh(p.gate.to(out.dtype)) * out
     return out, cache
 
 

@@ -1,15 +1,16 @@
 """Model API and post-training quantization (port of ``repro/models/model.py``).
 
     model  = build(cfg)
-    params = model.init(seed)                         # a TransformerLM module
+    params = model.init(seed)                         # a TransformerLM or VisionLM module
     out    = model.apply(params, {"tokens": t}, positions=..., caches=...)
     qparams = quantize_model(model, params, spec, calib)  # Dense -> QLinear modules
 
 ``params`` is the model's ``nn.Module``; ``model.apply`` calls the family's
 module (``transformer`` for dense and audio, ``moe`` for moe, ``mamba`` for
-ssm, ``rglru`` for hybrid; vlm is not ported yet) and wraps the result in
-:class:`ModelOutput`, with the MoE aux loss, or the final-norm hidden states
-with ``return_hidden_only`` (the trainer's chunked cross-entropy).
+ssm, ``rglru`` for hybrid, ``multimodal`` for vlm, whose batch also carries
+``image_embeds``) and wraps the result in :class:`ModelOutput`, with the
+MoE aux loss, or the final-norm hidden states with ``return_hidden_only``
+(the trainer's chunked cross-entropy).
 Quantization with calibration activations (``core.calibration.capture``)
 fits each projection's activation codebook and OASIS-S thresholds on them;
 without, it uses the structural Gaussian activation codebook, carried
@@ -33,7 +34,7 @@ from repro_torch.core.quantize import QuantizedWeight, fit_activation_codebook, 
 from repro_torch.core.quantspec import QuantSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import mamba, moe, rglru, transformer
+from repro_torch.models import mamba, moe, multimodal, rglru, transformer
 from repro_torch.models.gaussian_codebooks import GAUSSIAN_CENTROIDS
 
 __all__ = ["Model", "ModelOutput", "build", "head_matrix", "quantize_model",
@@ -48,8 +49,8 @@ _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wi", "wd", "in_proj", "x_proj", "dt_proj
 _SKIP_KEYS = {"router", "head", "embed", "shared_gate"}
 
 # param leaf key -> the calibration tap name(s) it feeds (``dense_apply``'s
-# ``tap_name`` in models/*.py); vlm's cross-attention taps ("cross.*") are
-# kept for the names' sake (the family is not ported)
+# ``tap_name`` in models/*.py); vlm's cross-attention projections tap as
+# "cross.*" (``_tap_candidates``)
 _TAP_OF = {
     "wq": ("attn.q",), "wk": ("attn.k",), "wv": ("attn.v",), "wo": ("attn.o",),
     "wi": ("mlp.wi",), "wd": ("mlp.wd",),
@@ -59,9 +60,10 @@ _TAP_OF = {
     "w_a": ("rglru.wa",), "w_x": ("rglru.wx",),
 }
 
-# vlm is not ported yet (transformer.check_ported raises)
 _FAMILY_MODULES = {"dense": transformer, "audio": transformer, "moe": moe, "ssm": mamba,
-                   "hybrid": rglru}
+                   "hybrid": rglru, "vlm": multimodal}
+
+LanguageModel = transformer.TransformerLM | multimodal.VisionLM
 
 
 @dataclasses.dataclass
@@ -80,25 +82,32 @@ class Model:
     def _mod(self):
         return _FAMILY_MODULES[self.cfg.family]
 
-    def init(self, seed: int = 0, device=None) -> transformer.TransformerLM:
+    def init(self, seed: int = 0, device=None) -> LanguageModel:
         """Seeded random parameters on ``device`` (default: the card)."""
         return self._mod.init(self.cfg, seed, resolve_device(device))
 
     def init_caches(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                     quantized: bool = False, layout: str = "ring", block_size: int = 16,
                     n_blocks: int = 0, device=None) -> list[dict]:
+        if layout == "paged" and self.cache_policies() is None:
+            raise ValueError(f"family {self.cfg.family} exports no cache policies "
+                             "(no paged serving layout)")
         return self._mod.init_caches(self.cfg, batch, cache_len, dtype, quantized, layout,
                                      block_size, n_blocks, resolve_device(device))
 
     def cache_policies(self):
+        """Per-layer cache policies for the scheduler, or None (vlm): the
+        engine then serves on the fixed-slot ring."""
         return self._mod.cache_policies(self.cfg)
 
-    def apply(self, params: transformer.TransformerLM, batch: dict, *, positions=None,
+    def apply(self, params: LanguageModel, batch: dict, *, positions=None,
               caches=None, last_only: bool = False,
               return_hidden_only: bool = False) -> ModelOutput:
-        out = self._mod.apply(params, self.cfg, batch["tokens"], positions=positions,
-                              caches=caches, last_only=last_only,
-                              return_hidden_only=return_hidden_only)
+        kw = dict(positions=positions, caches=caches, last_only=last_only,
+                  return_hidden_only=return_hidden_only)
+        if self.cfg.family == "vlm":
+            kw["image_embeds"] = batch["image_embeds"]
+        out = self._mod.apply(params, self.cfg, batch["tokens"], **kw)
         if return_hidden_only:
             return ModelOutput(None, *out[1:], hidden=out[0])
         return ModelOutput(*out)
@@ -109,14 +118,14 @@ def build(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
-def head_matrix(model: Model, params: transformer.TransformerLM) -> torch.Tensor:
+def head_matrix(model: Model, params: LanguageModel) -> torch.Tensor:
     """(d, vocab_padded) unembedding matrix (the transposed table when tied)."""
     if model.cfg.tie_embeddings:
         return params.embed.T
     return params.head.w
 
 
-def unstack_for_capture(model: Model, params: transformer.TransformerLM):
+def unstack_for_capture(model: Model, params: LanguageModel):
     """JAX's (model, scan-stacked params) -> (unscanned model, per-layer
     params), which its calibration taps need. The port's layers are never
     scanned, so its taps fire in every forward: an identity, kept for the
@@ -136,8 +145,8 @@ def _default_codebook(nbits: int, method: str = "kmeans", device="cpu") -> torch
 # PTQ
 # ---------------------------------------------------------------------------
 
-def quantize_model(model: Model, params: transformer.TransformerLM, spec: QuantSpec,
-                   calib: dict | None = None) -> transformer.TransformerLM:
+def quantize_model(model: Model, params: LanguageModel, spec: QuantSpec,
+                   calib: dict | None = None) -> LanguageModel:
     """A copy of ``params`` whose projections the spec selects are ``QLinear``
     modules (float tensors are shared with ``params``, not copied).
 
@@ -145,9 +154,11 @@ def quantize_model(model: Model, params: transformer.TransformerLM, spec: QuantS
     ``core.calibration.captured``; with it each projection's activation
     codebook (and the OASIS-S static thresholds) is fit on the activations
     that feed it, else the structural Gaussian codebook is used."""
-    if not isinstance(params, transformer.TransformerLM) or params.cfg != model.cfg:
+    if not isinstance(params, LanguageModel) or params.cfg != model.cfg:
         raise ValueError(f"params are not a parameter tree of {model.cfg.arch_id}")
-    return quantize_params(params, spec, calib, scan_layers=model.cfg.scan_layers)
+    # JAX stacks the vlm's blocks whatever scan_layers says
+    return quantize_params(params, spec, calib,
+                           scan_layers=model.cfg.scan_layers or model.cfg.family == "vlm")
 
 
 @torch.no_grad()
@@ -295,14 +306,49 @@ def _rec_block(bp: dict) -> rglru.RecBlock:
                           _proj(bp["lin_out"]), n2, _ffn(bp)["mlp"], b1, b2)
 
 
-def params_from_tree(tree: dict, cfg: ModelConfig) -> transformer.TransformerLM:
+def _attn_block(bp: dict) -> transformer.Block:
+    a = bp["attn"]
+    attn = L.Attention(_proj(a["wq"]), _proj(a["wk"]), _proj(a["wv"]), _proj(a["wo"]))
+    n1, b1 = _norm(bp["norm1"])
+    n2, b2 = _norm(bp["norm2"]) if "norm2" in bp else (None, None)
+    ffn = _ffn(bp)
+    return transformer.Block(n1, attn, ffn.get("mlp"), n2, norm1_bias=b1, norm2_bias=b2,
+                             moe=ffn.get("moe"))
+
+
+def _cross_block(bp: dict) -> multimodal.CrossBlock:
+    a = bp["attn"]
+    attn = L.Attention(_proj(a["wq"]), _proj(a["wk"]), _proj(a["wv"]), _proj(a["wo"]),
+                       a["gate"])
+    (n1, b1), (n2, b2) = _norm(bp["norm1"]), _norm(bp["norm2"])
+    return multimodal.CrossBlock(n1, attn, n2, _ffn(bp)["mlp"], bp["mlp_gate"], b1, b2)
+
+
+def _vision_lm(tree: dict, cfg: ModelConfig) -> multimodal.VisionLM:
+    """JAX's vlm tree: ``self_blocks`` leaves stacked (G, n_self, ...),
+    ``cross_blocks`` leaves (G, ...), the gates (G,)."""
+    n_groups, n_self = multimodal.groups(cfg)
+    self_blocks = [_attn_block(_layer(_layer(tree["self_blocks"], g), j))
+                   for g in range(n_groups) for j in range(n_self)]
+    cross_blocks = [_cross_block(_layer(tree["cross_blocks"], g)) for g in range(n_groups)]
+    head = _proj(tree["head"]) if "head" in tree else None
+    nf, bf = _norm(tree["norm_f"])
+    return multimodal.VisionLM(cfg, tree["embed"]["table"], self_blocks, cross_blocks, nf,
+                               head, bf)
+
+
+def params_from_tree(tree: dict, cfg: ModelConfig) -> LanguageModel:
     """Build the port's model from a JAX-layout tree of torch tensors and
     ``QLinearParams`` (``blocks`` scan-stacked with a leading layer axis, or
     a list of per-layer dicts): LayerNorm ``bias`` leaves, parallel blocks
     without ``norm2``, the moe subtree (``router``, the raw expert arrays
     ``wi`` / ``wd``, ``shared``, ``shared_gate``), Mamba blocks (``A_log``,
-    ``D``, ``dt_bias``, the conv) and the hybrid's RG-LRU blocks
-    (``lambda``, the conv, the gates) as JAX stores them."""
+    ``D``, ``dt_bias``, the conv), the hybrid's RG-LRU blocks (``lambda``,
+    the conv, the gates) and the vlm's two stacks (``self_blocks``,
+    ``cross_blocks`` with ``attn/gate`` and ``mlp_gate``) as JAX stores
+    them."""
+    if cfg.family == "vlm":
+        return _vision_lm(tree, cfg)
     blocks_in = tree["blocks"]
     stacked = isinstance(blocks_in, dict)
     blocks = []
@@ -314,13 +360,7 @@ def params_from_tree(tree: dict, cfg: ModelConfig) -> transformer.TransformerLM:
         if "lin_y" in bp:
             blocks.append(_rec_block(bp))
             continue
-        a = bp["attn"]
-        attn = L.Attention(_proj(a["wq"]), _proj(a["wk"]), _proj(a["wv"]), _proj(a["wo"]))
-        n1, b1 = _norm(bp["norm1"])
-        n2, b2 = _norm(bp["norm2"]) if "norm2" in bp else (None, None)
-        ffn = _ffn(bp)
-        blocks.append(transformer.Block(n1, attn, ffn.get("mlp"), n2, norm1_bias=b1,
-                                        norm2_bias=b2, moe=ffn.get("moe")))
+        blocks.append(_attn_block(bp))
     head = _proj(tree["head"]) if "head" in tree else None
     nf, bf = _norm(tree["norm_f"])
     return transformer.TransformerLM(cfg, tree["embed"]["table"], blocks, nf, head, bf)
@@ -354,6 +394,10 @@ def _block_tree(b: nn.Module, leaf=_data) -> dict:
                 "mlp": proj(b.mlp, ("wi", "wd"))}
     out = {"norm1": _norm_tree(b.norm1, b.norm1_bias, leaf),
            "attn": proj(b.attn, ("wq", "wk", "wv", "wo"))}
+    if isinstance(b, multimodal.CrossBlock):
+        return {**out, "norm2": _norm_tree(b.norm2, b.norm2_bias, leaf),
+                "attn": {**out["attn"], "gate": leaf(b.attn.gate)},
+                "mlp": proj(b.mlp, ("wi", "wd")), "mlp_gate": leaf(b.mlp_gate)}
     if b.moe is not None:
         m = b.moe
         sub = {"router": _proj_tree(m.router, leaf), "wi": leaf(m.wi), "wd": leaf(m.wd)}
@@ -386,21 +430,29 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def tree_from_params(params: transformer.TransformerLM, leaf=_data) -> dict:
+def tree_from_params(params: LanguageModel, leaf=_data) -> dict:
     """The inverse of :func:`params_from_tree`: the JAX-layout tree of the
-    port's model, with the layers stacked when its config scans them.
+    port's model, with the layers stacked when its config scans them (the
+    vlm's always: self blocks (G, n_self, ...), cross blocks (G, ...)).
     ``leaf(parameter)`` gives each float leaf (default: the parameter's
     tensor; the trainer maps parameters to their AdamW moments)."""
-    blocks = [_block_tree(b, leaf) for b in params.blocks]
-    tree = {"embed": {"table": leaf(params.embed)},
-            "blocks": _stack(blocks) if params.cfg.scan_layers else blocks,
-            "norm_f": _norm_tree(params.norm_f, params.norm_f_bias, leaf)}
+    tree = {"embed": {"table": leaf(params.embed)}}
+    if isinstance(params, multimodal.VisionLM):
+        n_groups, n_self = multimodal.groups(params.cfg)
+        sb = [_block_tree(b, leaf) for b in params.self_blocks]
+        tree["self_blocks"] = _stack([_stack(sb[g * n_self : (g + 1) * n_self])
+                                      for g in range(n_groups)])
+        tree["cross_blocks"] = _stack([_block_tree(b, leaf) for b in params.cross_blocks])
+    else:
+        blocks = [_block_tree(b, leaf) for b in params.blocks]
+        tree["blocks"] = _stack(blocks) if params.cfg.scan_layers else blocks
+    tree["norm_f"] = _norm_tree(params.norm_f, params.norm_f_bias, leaf)
     if params.head is not None:
         tree["head"] = _proj_tree(params.head, leaf)
     return tree
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> transformer.TransformerLM:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LanguageModel:
     """A float JAX parameter tree given as numpy arrays -> the port's model."""
     dev = resolve_device(device)
 

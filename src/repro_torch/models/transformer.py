@@ -5,7 +5,9 @@ Covers llama3.2-1b, h2o-danube (sliding-window attention), command-r-plus
 LayerNorm) and the musicgen backbone (sinusoidal positions, plain GeLU);
 ``models/moe.py`` builds its blocks on the same stack, and
 ``TransformerLM`` is also the container of the Mamba (``models/mamba.py``)
-and RG-LRU hybrid (``models/rglru.py``) stacks.
+and RG-LRU hybrid (``models/rglru.py``) stacks. The vlm family
+(``models/multimodal.py``) shares its embedding and head (:func:`embed_in`,
+:func:`logits_out`).
 
 ``TransformerLM`` holds its layers in an ``nn.ModuleList`` where the JAX
 package scans over stacked parameters. The serving caches (ring buffers or
@@ -25,9 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 __all__ = ["Block", "TransformerLM", "check_ported", "init", "apply", "init_caches",
-           "cache_policies"]
+           "cache_policies", "embed_in", "logits_out"]
 
-PORTED_FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid", "vlm")
 
 
 def _param(t: torch.Tensor | None) -> nn.Parameter | None:
@@ -65,8 +67,10 @@ class Block(nn.Module):
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The dense, audio, MoE, ssm and hybrid families are ported; vlm is
-    not yet."""
+    """Every family of the JAX package is ported; refused are the norms,
+    positions and activations neither package has, and configs no model of
+    the family can take (a vlm without its groups of self blocks and one
+    cross block)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"config {cfg.arch_id}: the {cfg.family} family is not "
                                   f"ported yet (ported: {', '.join(PORTED_FAMILIES)})")
@@ -77,6 +81,11 @@ def check_ported(cfg: ModelConfig) -> None:
                                   "ported")
     if cfg.family == "moe" and cfg.parallel_blocks:
         raise NotImplementedError("parallel MoE blocks exist in neither package")
+    if cfg.family == "vlm" and (cfg.cross_attn_every < 2 or cfg.n_layers % cfg.cross_attn_every
+                                or cfg.n_img_tokens < 1):
+        raise NotImplementedError(f"config {cfg.arch_id}: a vlm needs n_layers in groups of "
+                                  "cross_attn_every >= 2 blocks (self blocks, then one cross "
+                                  "block) and image tokens; no such vlm exists in either package")
 
 
 class TransformerLM(nn.Module):
@@ -107,13 +116,9 @@ class TransformerLM(nn.Module):
         taps read there what they read in the forward, also on the thread
         that runs the backward."""
         cfg = self.cfg
-        b, s = tokens.shape
         if positions is None:
-            positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-        x = self.embed[tokens.long()].to(getattr(torch, cfg.compute_dtype))
-        if cfg.pos_embed == "sinusoidal":
-            pe = L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
-            x = x + (pe if positions.ndim == 2 else pe[None])
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        x = embed_in(self, tokens, positions)
         remat = (cfg.remat in ("block", "double") and caches is None
                  and torch.is_grad_enabled())
         new_caches = None if caches is None else []
@@ -128,16 +133,32 @@ class TransformerLM(nn.Module):
                 new_caches.append(c)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
-        if last_only:
-            x = x[:, -1:]
-        x = L.norm_apply(self.norm_f, x, cfg.norm, self.norm_f_bias)
-        if hidden_only:
-            return x, new_caches, aux_total
-        if cfg.tie_embeddings:
-            logits = x @ self.embed.to(x.dtype).T
-        else:
-            logits = L.dense_apply(self.head, x)
-        return logits.float(), new_caches, aux_total
+        return logits_out(self, x, last_only, hidden_only), new_caches, aux_total
+
+
+def embed_in(lm: nn.Module, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The embedding of ``tokens`` (B, S) in the compute dtype, plus the
+    sinusoidal positions where the config asks."""
+    cfg = lm.cfg
+    x = lm.embed[tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    if cfg.pos_embed == "sinusoidal":
+        pe = L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+        x = x + (pe if positions.ndim == 2 else pe[None])
+    return x
+
+
+def logits_out(lm: nn.Module, x: torch.Tensor, last_only: bool, hidden_only: bool):
+    """The final norm, then (unless ``hidden_only``) the float32 logits
+    through the tied embedding or the head; ``last_only`` keeps the last
+    position."""
+    if last_only:
+        x = x[:, -1:]
+    x = L.norm_apply(lm.norm_f, x, lm.cfg.norm, lm.norm_f_bias)
+    if hidden_only:
+        return x
+    if lm.cfg.tie_embeddings:
+        return (x @ lm.embed.to(x.dtype).T).float()
+    return L.dense_apply(lm.head, x).float()
 
 
 def _norm_init(cfg: ModelConfig, dtype, device) -> tuple[torch.Tensor, torch.Tensor | None]:

@@ -19,7 +19,10 @@
   the token and position live in static device buffers. Recurrent layers'
   state (Mamba, RG-LRU) is zeroed per batch and takes no ``pad_len``: a
   left-padded row's pad tokens enter its state, as in JAX (the fixed-slot
-  engine is exact for them only on equal-length prompts).
+  engine is exact for them only on equal-length prompts). The vlm family
+  (no cache policies) always serves here: prefill and decode step take
+  zero ``image_embeds``, as JAX's engine feeds them, and the cross caches
+  ride with the rings (sliced to the batch, never written: JAX's rule).
 
 ``graph`` (not a ``ServeConfig`` field: it changes how the steps run, not
 what they compute): None runs them as CUDA graphs on the card and eagerly
@@ -53,7 +56,8 @@ from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.speculative import SpeculativeConfig, load_draft
 from repro_torch.serving.telemetry import make_telemetry
 
-__all__ = ["ServeConfig", "make_prefill_step", "make_serve_step", "ServingEngine"]
+__all__ = ["ServeConfig", "make_prefill_step", "make_serve_step", "image_inputs",
+           "ServingEngine"]
 
 _FALLBACK_COUNTERS = ("prefills", "steps", "tokens", "prompt_tokens", "pad_tokens")
 
@@ -86,6 +90,18 @@ class ServeConfig:
         return cls(**kw)
 
 
+def image_inputs(model, b: int, device) -> dict:
+    """The stub frontend's input for the vlm family: zero ``image_embeds``
+    (b, n_img_tokens, d_model) in the compute dtype, as JAX's engine feeds
+    them (a broadcast zero: the cached forward never reads them); {} for
+    other families."""
+    cfg = model.cfg
+    if cfg.family != "vlm":
+        return {}
+    zero = torch.zeros((), dtype=getattr(torch, cfg.compute_dtype), device=device)
+    return {"image_embeds": zero.expand(b, cfg.n_img_tokens, cfg.d_model)}
+
+
 def make_prefill_step(model, sc: ServeConfig) -> Callable:
     """prefill(params, caches, batch) -> (first token (B,) int32, caches,
     last-position logits (B, vocab_padded))."""
@@ -110,8 +126,8 @@ def make_serve_step(model, sc: ServeConfig) -> Callable:
 
     @torch.inference_mode()
     def serve_step(params, caches, tokens, pos):
-        out = model.apply(params, {"tokens": tokens}, positions=pos.reshape(1),
-                          caches=caches)
+        batch = {"tokens": tokens, **image_inputs(model, tokens.shape[0], tokens.device)}
+        out = model.apply(params, batch, positions=pos.reshape(1), caches=caches)
         logits = out.logits[:, -1, : model.cfg.vocab_size]
         return logits.argmax(dim=-1).int(), out.caches, logits
 
@@ -238,7 +254,8 @@ class ServingEngine:
         of the first rows, every slot emptied, recurrent state zeroed and
         ``pad_len`` set, in place (a captured decode step holds their
         addresses). Slots a batch left behind are masked by ``slot_pos``
-        until overwritten."""
+        until overwritten. A vlm's cross caches come sliced to the batch,
+        with no ``pad_len`` (they hold no positions)."""
         sc, b = self.sc, len(pads)
         if self._ring is None:
             self._ring = self.model.init_caches(self.slots, sc.cache_len, sc.cache_dtype,
@@ -309,7 +326,8 @@ class ServingEngine:
         self._fc["prompt_tokens"].add(b * plen)
         self._fc["pad_tokens"].add(sum(pads))
         with self.telemetry.annotate("fallback_prefill"):
-            tok, caches, logits = self._prefill(self.params, caches, {"tokens": toks})
+            tok, caches, logits = self._prefill(
+                self.params, caches, {"tokens": toks, **image_inputs(self.model, b, self.device)})
         vocab = self.model.cfg.vocab_size
         gen = None
         if self.sc.temperature > 0:

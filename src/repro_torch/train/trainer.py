@@ -116,9 +116,13 @@ def decay_mask(params) -> dict[str, bool]:
     """{parameter name: decayed}: JAX decays a leaf of rank >= 2 in its tree,
     where a scanned config stacks each per-layer tensor on a layer axis (so
     its norms, biases, ``D`` and ``dt_bias`` decay, and the final norm does
-    not)."""
-    stacked = params.cfg.scan_layers
-    return {n: p.ndim + (1 if stacked and n.startswith("blocks.") else 0) >= 2
+    not). The vlm's tree always stacks: self blocks on two axes (groups,
+    blocks), cross blocks on one, so their gates (G,) do not decay and their
+    norms (G, d) do."""
+    lead = {"self_blocks.": 2, "cross_blocks.": 1}
+    if params.cfg.scan_layers:
+        lead["blocks."] = 1
+    return {n: p.ndim + next((a for k, a in lead.items() if n.startswith(k)), 0) >= 2
             for n, p in params.named_parameters()}
 
 

@@ -87,9 +87,12 @@ def test_configs_are_copies_and_other_families_refused():
         from repro_torch.configs.base import get_config
         from repro.configs.base import get_config as j_config
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_config(arch))
-    cfg = dataclasses.replace(t_smoke("llama3_2_1b"), family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
+    # every family is ported now: check_ported refuses what neither package
+    # has (here a norm), and accepts the vlm config
+    cfg = dataclasses.replace(t_smoke("llama3_2_1b"), norm="group")
+    with pytest.raises(NotImplementedError, match="norm 'group'"):
         build(cfg)
+    assert build(t_smoke("llama3_2_vision_11b")).cfg.family == "vlm"
 
 
 # ---------------------------------------------------------------------------

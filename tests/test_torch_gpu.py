@@ -138,6 +138,9 @@ def test_topk_kernel_vs_plain_exact(dev, m, n, k, kind):
         x = torch.randint(-3, 4, (m, n), generator=g, device=dev).float()
     elif kind == "equal":
         x = torch.full((m, n), 0.5, device=dev)
+    elif kind == "zeros":  # every other row all +0.0 (a served vlm cross block's wo input)
+        x = torch.randn((m, n), generator=g, device=dev)
+        x[::2] = 0.0
     else:
         x = _special_rows(m, n, k, n + k, dev)
     got = topk_outlier_call(x, k)
@@ -778,13 +781,20 @@ def test_fused_lut_gemm_at_family_shapes(dev, m, k, n, byte):
     """bf16 activations, the mul compare form: within 2 sqrt(K) u max(|a| @
     |w|) of the plain version (the scale of two summation orders, below one
     index flip), bit for bit on exact sums and across two launches."""
+    _check_family_gemm(dev, m, k, n, byte)
+
+
+def _check_family_gemm(dev, m, k, n, byte, zero_rows=False):
     from repro_torch.core.codebook import boundaries_from_centroids
     from repro_torch.kernels.lut_gemm import (exact_sum_inputs, fused_lut_gemm,
                                               fused_lut_gemm_plain)
     from repro_torch.models.model import _default_codebook
 
     g = torch.Generator(device=dev).manual_seed(k + n)
-    x = (torch.randn((m, k), generator=g, device=dev) * 1.5).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=g, device=dev) * 1.5
+    if zero_rows:
+        x[::2] = 0.0
+    x = x.to(torch.bfloat16)
     s = x.float().square().mean(-1, keepdim=True).sqrt()
     a_book = _default_codebook(4, device=dev)
     bounds = boundaries_from_centroids(a_book).contiguous()
@@ -1058,3 +1068,97 @@ def test_recurrent_probed_graph_keeps_the_state(dev, arch):
     assert eng.generate(prompts, 6) == want
     assert eng.scheduler.probe_graph.capture_s > 0
     assert eng.snapshot()["counters"]["numerics_probe_steps"] == eng.stats["packed_steps"]
+
+
+# ---------------------------------------------------------------------------
+# the vlm family (llama3_2_vision_11b): its kernel shapes and its ring step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,byte,zero_rows", [
+    (8, 4096, 4096, False, False),      # wq, wo at 8 decode rows
+    (8, 4096, 1024, False, False),      # wk, wv
+    (8, 4096, 28672, False, False),     # wi
+    (8, 14336, 4096, True, False),      # wd, W8
+    (8, 4096, 4096, False, True),       # a served cross block's wo: zero rows
+    (1024, 4096, 28672, False, False),  # wi at 8 x 128 prefill rows
+])
+def test_fused_lut_gemm_at_vlm_shapes(dev, m, k, n, byte, zero_rows):
+    """llama3_2_vision_11b's projections, the checks of the family shapes."""
+    _check_family_gemm(dev, m, k, n, byte, zero_rows)
+
+
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("n,k", [(4096, 20), (14336, 72)])
+@pytest.mark.parametrize("kind", ["normal", "specials", "zeros"])
+def test_topk_at_vlm_widths(dev, m, n, k, kind):
+    """Orizuru's k = round(0.005 N) on the vlm's projection inputs (d 4096,
+    d_ff 14336), at decode and prefill rows, and on all-zero rows."""
+    test_topk_kernel_vs_plain_exact(dev, m, n, k, kind)
+
+
+def _vlm_engine_model(dev):
+    """The smoke vlm on the card with both gates of every cross block
+    nonzero, quantized W4A4 + W8 ``mlp/wd`` with dynamic outliers (fused
+    route), served on an int4 ring."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.qlinear import QLinearConfig
+    from repro_torch.core.quantspec import QuantSpec
+    from repro_torch.models.model import build as build_model
+    from repro_torch.models.model import quantize_model
+
+    model = build_model(get_smoke_config("llama3_2_vision_11b"))
+    params = model.init(seed=0, device=dev)
+    with torch.no_grad():
+        for i, blk in enumerate(params.cross_blocks):
+            blk.attn.gate.fill_(0.4 + 0.1 * i)
+            blk.mlp_gate.fill_(0.7 - 0.1 * i)
+    spec = QuantSpec(base=QLinearConfig(detection="dynamic", outlier_frac=0.05),
+                     rules=[("mlp/wd", {"w_bits": 8})], kv_bits=4, kv_dtype="float32")
+    return model, quantize_model(model, params, spec)
+
+
+def test_vlm_ring_decode_graph_is_bit_equal_to_eager(dev):
+    """The vlm's fixed-slot decode step as a graph replay against the eager
+    step, on cross caches filled with random values before the prefill: a
+    left-padded batch's prefill and four steps' logits and every ring bit
+    for bit; the cross caches hold exactly what was put there after every
+    replay (read, never written), and the graph holds their addresses."""
+    from repro_torch.serving.engine import ServeConfig, ServingEngine, image_inputs
+
+    model, qp = _vlm_engine_model(dev)
+    sc = ServeConfig(cache_len=64, kv_quant=True, cache_dtype="float32")
+    prompts = [list(range(40, 50)), [7, 8], list(range(1, 6))]
+    got = {}
+    for graph in (True, False):
+        eng = ServingEngine(model, qp, sc, batch_slots=3, graph=graph)
+        assert not eng.paged
+        plen = max(len(p) for p in prompts)
+        pads = [plen - len(p) for p in prompts]
+        caches = eng._ring_caches(pads)
+        g = torch.Generator(device=dev).manual_seed(1)
+        filled = []
+        for layer in eng._ring:
+            for key in ("ck", "cv"):
+                if key in layer:
+                    layer[key].copy_(torch.randn(layer[key].shape, generator=g, device=dev))
+                    filled.append((layer[key], layer[key].clone(), layer[key].data_ptr()))
+        toks = torch.tensor([[0] * n + p for n, p in zip(pads, prompts)], dtype=torch.int32,
+                            device=dev)
+        tok, caches, _ = eng._prefill(qp, caches, {"tokens": toks,
+                                                   **image_inputs(model, len(prompts), dev)})
+        logits = []
+        for pos in range(plen, plen + 4):
+            tok, lg = eng._decode_step(caches, tok, pos)
+            logits.append(lg.clone())
+            tok = tok.clone()
+            torch.cuda.synchronize()
+            for t, want, ptr in filled:
+                assert torch.equal(t, want) and t.data_ptr() == ptr
+        rings = [{k: v.clone() for k, v in layer.items()} for layer in eng._ring]
+        got[graph] = (logits, rings, eng.stats["graph_capture_s"])
+    for g_, e in zip(got[True][0], got[False][0]):
+        assert torch.equal(g_, e)
+    for g_, e in zip(got[True][1], got[False][1]):
+        for k in g_:
+            assert torch.equal(g_[k], e[k]), k
+    assert got[True][2] > 0 and got[False][2] is None

@@ -20,7 +20,8 @@
   artifact with int4 state served through the port's paged step within the
   same bound (its state indices exactly, conv tails within 2e-5), the
   port's PTQ saved and read back by JAX, policies and
-  parameter shapes equal to JAX's, and ``vlm`` still refused.
+  parameter shapes equal to JAX's, and a ``vlm`` without cross-attention
+  groups refused.
 """
 
 import dataclasses
@@ -231,8 +232,8 @@ def test_block_matches_jax(lm, layout):
 
 def test_configs_policies_and_entry_points():
     """Copies of JAX's configs; the expanded pattern and policies are
-    JAX's; parameter shapes equal JAX's tree; ssm and hybrid build, vlm is
-    still refused."""
+    JAX's; parameter shapes equal JAX's tree; ssm and hybrid build, a vlm
+    without cross-attention groups is refused."""
     for arch in ARCHS:
         assert arch in list_archs()
         for t, j in ((get_smoke_config(arch), j_smoke(arch)), (get_config(arch), j_config(arch))):
