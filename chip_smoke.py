@@ -195,6 +195,24 @@ Phases, each printing one JSON line:
               tokens on the graph engine with exact launches (224 fused
               LUT-GEMMs and 224 top-k per forward), no plain route, the
               cross caches still zero (never written, as in JAX); a profile.
+19. collectives -- blockwise int8 quantization on the card bit-equal to
+              the CPU's, and ``compress_decompress_tree`` over llama3_2_1b's
+              whole float32 gradient and error set: ms and GB/s against
+              3.35 TB/s.
+    grad_compression -- llama3_2_1b whole (bf16, remat) trains
+              ``COMPRESS_STEPS`` steps of 16 x 64 tokens through ``Trainer``
+              without and with ``grad_compression`` from one init: ms per
+              step, peak GB, both loss curves; each run's last 5 losses
+              under half its first.
+    sharded_train_nccl -- llama3_2_1b whole, one train step sharded on a
+              (1, 1) ("data", "model") mesh over NCCL against the unsharded
+              card step: loss and parameters within ``SHARDED_REL``.
+    sharded_train_2rank -- two processes share the card over gloo:
+              which collectives gloo carries for CUDA tensors (DTensor's
+              functional all-gather crashes the process, so no (1, 2)
+              mesh), then llama3_2_1b at 2 layers of full width in float32
+              on a (2, 1) mesh against the single-process card step within
+              ``SHARDED_REL``.
 
 ``--only group,...`` runs some groups (``PHASE_GROUPS``) and prints no
 result line. A ``timing`` line gives every phase's seconds.
@@ -206,6 +224,7 @@ exits non-zero. Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3516,8 +3535,373 @@ def phase_train_group(dev, smi_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# group distributed (phase 19): gradient compression, the sharded step
+# ---------------------------------------------------------------------------
+
+COMPRESS_STEPS = 30  # train steps with and without gradient compression
+SHARDED_REL = 1e-5  # sharded vs single-process step, loss and parameters
+# ("data", "model") meshes of two ranks on one card: data parallel only. A
+# (1, 2) mesh needs DTensor's all-gather, whose functional collective
+# (``funcol.all_gather_tensor``) crashes the process on gloo with CUDA
+# tensors in torch 2.11 (the last probe below; PERF.md section 6)
+SHARDED_MESHES = ((2, 1),)
+# c10d collectives, then DTensor's functional ones (the crashing one last)
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
+               "reduce_scatter_tensor", "all_to_all_single", "funcol.all_reduce",
+               "funcol.reduce_scatter_tensor", "funcol.all_gather_tensor")
+
+
+def phase_collectives(dev) -> bool:
+    """Phase 19a: blockwise int8 quantization on the card equals the CPU's
+    bit for bit (values and scales, sizes 1, 257, 1000 and 2^20 + 3); then
+    ``compress_decompress_tree`` over llama3_2_1b's whole parameter set
+    (JAX's leaves, float32 gradients and error state): ms, and GB/s of the
+    16 bytes per parameter it must move (read the gradient and the error,
+    write both) against the card's 3.35 TB/s."""
+    import torch
+
+    from repro_torch.distributed.collectives import compress_decompress_tree, quantize_blockwise
+    from repro_torch.distributed.param_sharding import param_shapes
+
+    gen = torch.Generator().manual_seed(0)
+    exact = {}
+    for n in (1, 257, 1000, 2**20 + 3):
+        x = torch.randn(n, generator=gen) * torch.exp(torch.randn(n, generator=gen) * 3)
+        qc, sc = quantize_blockwise(x)
+        qg, sg = quantize_blockwise(x.to(dev))
+        exact[n] = torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu().view(torch.int32),
+                                                             sc.view(torch.int32))
+    leaves = {}
+
+    def collect(t, path=""):
+        if isinstance(t, (dict, list)):
+            for k, v in (t.items() if isinstance(t, dict) else enumerate(t)):
+                collect(v, f"{path}/{k}")
+        else:
+            leaves[path] = t.shape
+
+    collect(param_shapes(train_model().init(seed=0, device=dev)))
+    torch.cuda.empty_cache()
+    grads = {k: torch.randn(s, device=dev) * 1e-3 for k, s in leaves.items()}
+    err = {k: torch.zeros(s, device=dev) for k, s in leaves.items()}
+    n_params = sum(g.numel() for g in grads.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms([lambda: compress_decompress_tree(grads, err)], reps=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    nbytes = 16 * n_params
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ok = all(exact.values()) and math.isfinite(ms)
+    emit("collectives", bit_equal_to_cpu=exact, leaves=len(leaves), params=n_params,
+         compress_ms=ms, bound_ms=bound_ms, gb_per_s=nbytes / ms / 1e6,
+         hbm_share=bound_ms / ms, peak_gb=peak, ok=ok)
+    del grads, err
+    return ok
+
+
+def phase_grad_compression(dev, smi_line) -> bool:
+    """Phase 19b: llama3_2_1b whole (bf16, remat) trains ``COMPRESS_STEPS``
+    steps of 16 x 64 tokens through ``Trainer``, without and with
+    ``grad_compression``, from one init and the same batches: ms per step,
+    peak GB and both loss curves. Passes when every loss is finite and each
+    run's last 5 steps average under half its first step's loss (no gate on
+    speed)."""
+    import torch
+
+    from repro_torch.data.pipeline import ByteCorpus, DataConfig, TokenPipeline
+    from repro_torch.train.trainer import Trainer
+
+    model = train_model()
+    corpus = ByteCorpus()
+    runs, ok = {}, True
+    for comp in (False, True):
+        tc = dataclasses.replace(example_train_config(COMPRESS_STEPS), grad_compression=comp)
+        trainer = Trainer(model, tc, TokenPipeline(corpus.tokens, DataConfig(
+            seq_len=64, global_batch=16, seed=0)), device=dev)
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.run(COMPRESS_STEPS, log_every=1,
+                    log=lambda line: losses.append(float(line.split()[3])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        last5 = sum(losses[-5:]) / 5
+        runs["compressed" if comp else "plain"] = dict(
+            ms_per_step=wall / COMPRESS_STEPS * 1e3, median_ms=trainer.monitor.median() * 1e3,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses, last5_mean=last5)
+        ok &= (len(losses) == COMPRESS_STEPS and all(math.isfinite(x) for x in losses)
+               and last5 < losses[0] / 2)
+        del trainer
+        torch.cuda.empty_cache()
+    emit("grad_compression", arch=model.cfg.arch_id, layers=model.cfg.n_layers,
+         param_dtype=model.cfg.param_dtype, remat=model.cfg.remat, batch=[16, 64],
+         steps=COMPRESS_STEPS, **runs,
+         added_ms_per_step=runs["compressed"]["median_ms"] - runs["plain"]["median_ms"],
+         card=smi_line, ok=ok)
+    return ok
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_step(model, tc, dev, batch, mesh, model_size: int, steps: int = 1):
+    """One init, its single-process step(s) and the sharded one(s) on
+    ``mesh`` under ``DEFAULT_RULES``: (losses single, losses sharded, worst
+    parameter rel L2 after the first step and its name, ms of each run's
+    last step)."""
+    import copy
+
+    import torch
+
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_rules
+    from repro_torch.train.trainer import (init_train_state, make_train_step, shard_batch,
+                                           shard_train_state)
+
+    step = make_train_step(model, tc)
+    state = init_train_state(model, 0, tc, device=dev)
+    single = copy.deepcopy(state)
+    shard_train_state(state, mesh, model_size=model_size)
+    sbatch = shard_batch(batch, mesh, "data")
+    out = {"single": [], "sharded": [], "ms": {}}
+    worst = None
+    for i in range(steps):
+        for name, run in (("single", lambda: step(single, batch)),
+                          ("sharded", lambda: step(state, sbatch))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_rules(DEFAULT_RULES, mesh) if name == "sharded" else contextlib.nullcontext():
+                _, m = run()
+            loss = m["loss"]
+            out[name].append(float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss))
+            torch.cuda.synchronize()
+            out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            ref = dict(single["params"].named_parameters())
+            rels = {k: rel_l2(p.full_tensor(), ref[k])
+                    for k, p in state["params"].named_parameters()}
+            worst = max(rels.items(), key=lambda kv: kv[1])
+            out["bit_equal"] = all(torch.equal(p.full_tensor(), ref[k])
+                                   for k, p in state["params"].named_parameters())
+    out["worst_param"], out["worst_param_rel_l2"] = worst
+    return out
+
+
+def phase_sharded_nccl(dev) -> bool:
+    """Phase 19c: the sharded step of llama3_2_1b whole (bf16, remat, 16 x 64
+    tokens) on a (1, 1) ("data", "model") mesh over NCCL on the card, against
+    the unsharded card step from the same init: the loss and every parameter
+    bit for bit, or within ``SHARDED_REL`` where DTensor reorders a sum;
+    ms of each step (the first, so DTensor's sharding propagation is cold),
+    reported."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import ByteCorpus, DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        model = train_model()
+        pipe = TokenPipeline(ByteCorpus().tokens, DataConfig(seq_len=64, global_batch=16,
+                                                             seed=0))
+        batch = {"tokens": torch.from_numpy(pipe.next_batch()["tokens"]).to(dev)}
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        r = sharded_step(model, example_train_config(10), dev, batch, mesh, model_size=1,
+                         steps=2)
+    finally:
+        dist.destroy_process_group()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r["sharded"], r["single"])]
+    ok = max(loss_rel) <= SHARDED_REL and r["worst_param_rel_l2"] <= SHARDED_REL
+    emit("sharded_train_nccl", arch=model.cfg.arch_id, layers=model.cfg.n_layers, mesh=[1, 1],
+         backend="nccl", losses_single=r["single"], losses_sharded=r["sharded"],
+         loss_rel=loss_rel, params_bit_equal=r["bit_equal"], worst_param=r["worst_param"],
+         worst_param_rel_l2=r["worst_param_rel_l2"], bound=SHARDED_REL,
+         ms_second_step=r["ms"], ok=ok)
+    return ok
+
+
+def sharded_rank(argv: list[str]) -> int:
+    """One rank of phase 19d (``chip_smoke.py --sharded-rank RANK PORT OUT
+    WHAT``): two ranks share ``cuda:0`` over gloo. ``WHAT`` is ``probes``
+    (which collectives gloo carries for CUDA tensors, one at a time) or a
+    mesh ``DxM`` of ("data", "model"): the sharded step of llama3_2_1b at 2
+    layers of full width in float32 against the single-process card step.
+    Each rank appends what it begins and ends to ``OUT/<WHAT>.rank<R>``, so
+    a crash names its step (``faulthandler`` prints the stack); rank 0
+    writes ``OUT/<WHAT>.json``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.data.pipeline import ByteCorpus, DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+
+    faulthandler.enable()
+    rank, port, out, what = int(argv[0]), int(argv[1]), pathlib.Path(argv[2]), argv[3]
+    progress = open(out / f"{what}.rank{rank}", "a", buffering=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    progress.write("init\n")
+    res: dict = {"torch": torch.__version__}
+    if what == "probes":
+        x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+        probes = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+            "all_gather": lambda: dist.all_gather([torch.empty(8, device=dev)
+                                                   for _ in range(2)], x),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(16, device=dev), x),
+            "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                torch.empty(4, device=dev), x),
+            "all_to_all_single": lambda: dist.all_to_all_single(torch.empty(8, device=dev), x),
+            "funcol.all_reduce": lambda: funcol.all_reduce(x, "sum", dist.group.WORLD) + 0,
+            "funcol.reduce_scatter_tensor": lambda: funcol.reduce_scatter_tensor(
+                x, "sum", 0, dist.group.WORLD) + 0,
+            "funcol.all_gather_tensor": lambda: funcol.all_gather_tensor(
+                x, 0, dist.group.WORLD) + 0,
+        }
+        for name in GLOO_PROBES:
+            progress.write(f"begin {name}\n")
+            try:
+                probes[name]()
+                torch.cuda.synchronize()
+                res[name] = "ok"
+            except Exception as e:  # a refused collective is the finding
+                res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+            progress.write(f"end {name}: {res[name]}\n")
+            dist.barrier()
+    else:
+        shape = tuple(int(d) for d in what.split("x"))
+        model = train_model(layers=2, float32=True)
+        pipe = TokenPipeline(ByteCorpus().tokens, DataConfig(seq_len=64, global_batch=4, seed=0))
+        batch = {"tokens": torch.from_numpy(pipe.next_batch()["tokens"]).to(dev)}
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        progress.write("mesh\n")
+        res.update(sharded_step(model, example_train_config(10), dev, batch, mesh,
+                                model_size=shape[1], steps=2))
+        progress.write("steps\n")
+    dist.barrier()
+    if rank == 0:
+        (out / f"{what}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def two_ranks(out: pathlib.Path, what: str) -> tuple[dict | None, str]:
+    """Launch the two ranks of ``sharded_rank`` for ``what``; (rank 0's
+    result or None, what went wrong: the return codes, each rank's last
+    progress line and the end of its output)."""
+    port = free_port()
+    for f in out.glob(f"{what}.*"):
+        f.unlink()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+                               str(r), str(port), str(out), what], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    result = out / f"{what}.json"
+    if result.exists() and not any(p.returncode for p in procs):
+        return json.loads(result.read_text()), ""
+    lines = [(out / f"{what}.rank{r}").read_text().splitlines()
+             if (out / f"{what}.rank{r}").exists() else [] for r in range(2)]
+    last = [ls[-1] if ls else "(not started)" for ls in lines]
+    print("\n".join(log[-3000:] for log in logs), file=sys.stderr)
+    return None, f"return codes {[p.returncode for p in procs]}, last steps {last}"
+
+
+def probe_results(out: pathlib.Path, why: str) -> dict:
+    """Each probe's result from rank 0's progress lines; a probe begun and
+    not ended crashed the process."""
+    f = out / "probes.rank0"
+    got = {}
+    for line in (f.read_text().splitlines() if f.exists() else []):
+        kind, _, rest = line.partition(" ")
+        if kind == "begin":
+            got[rest] = f"crashed the process ({why})"
+        elif kind == "end":
+            name, _, res = rest.partition(": ")
+            got[name] = res
+    return got
+
+
+def phase_sharded_2rank(smi_line) -> bool:
+    """Phase 19d: two processes share ``cuda:0`` over gloo (NCCL refuses two
+    ranks on one device). First which collectives gloo carries for CUDA
+    tensors (the last, DTensor's functional all-gather, is expected to crash
+    its process: reported, not gated); then, one launch per mesh of
+    ``SHARDED_MESHES``, llama3_2_1b at 2 layers of full width in float32
+    (TF32 off), one init, 4 x 64 tokens: the sharded step against the
+    single-process card step, loss and every parameter within
+    ``SHARDED_REL`` after the first step."""
+    out = ROOT / "build" / "sharded_2rank"
+    out.mkdir(parents=True, exist_ok=True)
+    probes, why = two_ranks(out, "probes")
+    if probes is None:
+        probes = probe_results(out, why)
+    # the c10d collectives and the functional ones a data-parallel step uses
+    ok = all(probes.get(k) == "ok" for k in GLOO_PROBES[:-1])
+    meshes = {}
+    for shape in SHARDED_MESHES:
+        key = f"{shape[0]}x{shape[1]}"
+        r, why_m = two_ranks(out, key)
+        if r is None:
+            meshes[key] = {"error": why_m, "ok": False}
+            ok = False
+            continue
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(r["sharded"], r["single"])]
+        good = loss_rel[0] <= SHARDED_REL and r["worst_param_rel_l2"] <= SHARDED_REL
+        meshes[key] = dict(losses_single=r["single"], losses_sharded=r["sharded"],
+                           loss_rel=loss_rel, worst_param=r["worst_param"],
+                           worst_param_rel_l2=r["worst_param_rel_l2"],
+                           ms_second_step=r["ms"], ok=good)
+        ok &= good
+    emit("sharded_train_2rank", arch="llama3_2_1b", layers=2, dtype="float32", batch=[4, 64],
+         backend="gloo", gloo_cuda_collectives=probes or {"error": why}, meshes=meshes,
+         bound=SHARDED_REL, card=smi_line, ok=ok)
+    return ok
+
+
+def phase_distributed_group(dev, smi_line) -> dict:
+    """Phase 19 (group ``distributed``). Returns {check: passed}."""
+    import torch
+
+    out = {}
+    for name, run in (("collectives", lambda: phase_collectives(dev)),
+                      ("grad compression", lambda: phase_grad_compression(dev, smi_line)),
+                      ("sharded train nccl", lambda: phase_sharded_nccl(dev)),
+                      ("sharded train 2 ranks", lambda: phase_sharded_2rank(smi_line))):
+        try:
+            out[name] = bool(run())
+        except Exception:
+            traceback.print_exc()
+            out[name] = False
+        torch.cuda.empty_cache()
+    return out
+
+
 PHASE_GROUPS = ("kernels", "family_kernels", "llama", "swa", "dense_variants", "moe",
-                "recurrent", "train", "vlm")
+                "recurrent", "train", "vlm", "distributed")
 
 
 def main(argv: list[str]) -> int:
@@ -3529,6 +3913,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--sharded-rank"] and len(argv) == 5:  # one rank of phase 19d
+        sys.path.insert(0, str(ROOT / "src"))
+        return sharded_rank(argv[1:])
     only = set(PHASE_GROUPS)
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = set(argv[1].split(","))
@@ -3638,7 +4025,8 @@ def main(argv: list[str]) -> int:
                        ("moe", lambda: phase_moe(dev, smi_line)),
                        ("recurrent", lambda: phase_recurrent(dev, smi_line)),
                        ("vlm", lambda: phase_vlm(dev, smi_line)),
-                       ("train", lambda: phase_train_group(dev, smi_line))):
+                       ("train", lambda: phase_train_group(dev, smi_line)),
+                       ("distributed", lambda: phase_distributed_group(dev, smi_line))):
         if group in only:
             torch.cuda.empty_cache()
             guarded(group, run)
@@ -3647,7 +4035,7 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
     if not {"kernels", "llama", "swa", "dense_variants", "moe", "recurrent", "train",
-            "vlm"} <= only:
+            "vlm", "distributed"} <= only:
         print(f"chip_smoke: the groups {sorted(only)} passed (a partial run: no result line)")
         return 0
 

@@ -18,6 +18,11 @@ dicts, lists and tuples over tensors, numpy arrays and Python scalars;
 bfloat16 tensors are stored as their bits under the dtype name
 ``bfloat16``, as JAX names it.
 
+A sharded leaf (a DTensor) is saved unsharded and logical: every rank
+gathers it (a collective, so every rank calls ``save``), and under an
+initialised process group only rank 0 writes. Any mesh can then load the
+checkpoint, and its digests equal a single-process save's.
+
 Restore is template-based: leaves are matched by key. A step without
 COMMIT (a crash mid-write) is ignored by ``restore_latest``; with the data
 pipeline's state in the checkpoint, a restart resumes from the last durable
@@ -36,6 +41,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 __all__ = ["save_checkpoint", "load_checkpoint", "CheckpointManager"]
 
@@ -55,7 +62,10 @@ def _paths(tree, prefix: str = ""):
 
 
 def _leaf_raw(leaf) -> tuple[str, list[int], bytes]:
-    """(dtype name, shape, raw bytes) of one leaf, copied to the host."""
+    """(dtype name, shape, raw bytes) of one leaf, gathered if sharded and
+    copied to the host."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -161,6 +171,8 @@ class CheckpointManager:
     def save(self, tree, step: int):
         self.wait()  # one async save in flight at a time
         flat = _flatten(tree)  # a host snapshot before the async write
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # the gathered state is the same on every rank: rank 0 writes it
 
         def _do():
             _write(str(self.dir), step, flat, 0, 1)

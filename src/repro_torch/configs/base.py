@@ -4,7 +4,8 @@ The port keeps its own copy of the JAX package's ``ModelConfig`` (same field
 names and defaults, so an artifact manifest's ``model`` dict loads into it
 unchanged) and of the architectures it serves. ``get_config(arch_id)`` is the
 published configuration, ``get_smoke_config(arch_id)`` the reduced
-same-family configuration the CPU tests use.
+same-family configuration the CPU tests use. ``SHAPES`` are the input-shape
+cells (train, prefill, decode) that ``launch.specs`` sets up.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import dataclasses
 import importlib
 from typing import Literal
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config", "get_smoke_config",
+           "list_archs"]
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
 
@@ -74,6 +76,12 @@ class ModelConfig:
         """Vocab padded to a multiple of 128 (the embedding table's rows)."""
         return (self.vocab_size + 127) // 128 * 128
 
+    def supports_long_context(self) -> bool:
+        """True iff attention cost and memory are bounded (SSM, window, hybrid)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
     def expanded_pattern(self) -> tuple[str, ...]:
         """The block kind of every layer: ``block_pattern`` repeated to
         ``n_layers`` (the hybrid family's stack; empty otherwise)."""
@@ -83,18 +91,47 @@ class ModelConfig:
         return (self.block_pattern * reps)[: self.n_layers]
 
 
-_ARCHS = ["llama3_2_1b", "oasis_7b", "h2o_danube_1_8b", "nemotron_4_15b",
-          "command_r_plus_104b", "musicgen_large", "granite_moe_3b_a800m", "qwen2_moe_a2_7b",
-          "falcon_mamba_7b", "recurrentgemma_2b", "llama3_2_vision_11b"]
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
 
 
-def list_archs() -> list[str]:
-    return list(_ARCHS)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+_ARCHS = [
+    "granite_moe_3b_a800m",
+    "qwen2_moe_a2_7b",
+    "h2o_danube_1_8b",
+    "llama3_2_1b",
+    "command_r_plus_104b",
+    "nemotron_4_15b",
+    "llama3_2_vision_11b",
+    "falcon_mamba_7b",
+    "musicgen_large",
+    "recurrentgemma_2b",
+    "oasis_7b",  # the paper's own LLaMA-7B-class evaluation model
+]
+
+
+def list_archs(assigned_only: bool = False) -> list[str]:
+    """Every architecture, the JAX package's order; ``assigned_only`` leaves
+    out the last, oasis (the paper's evaluation model)."""
+    return _ARCHS[:-1] if assigned_only else list(_ARCHS)
 
 
 def _module(arch_id: str):
     if arch_id not in _ARCHS:
-        raise KeyError(f"arch '{arch_id}' is not ported yet; ported: {_ARCHS}")
+        raise KeyError(f"unknown arch '{arch_id}'; known: {_ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

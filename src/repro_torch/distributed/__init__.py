@@ -1,1 +1,3 @@
-"""Distribution pieces of the port (``repro/distributed``): the step monitor."""
+"""Distribution pieces of the port (``repro/distributed``): logical-axis
+sharding rules on DTensor, parameter and cache specs, int8 gradient
+compression, and fault tolerance."""

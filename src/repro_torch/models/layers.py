@@ -30,6 +30,10 @@ would double its memory traffic. Nothing on the paged branch or on the
 ring's decode branch reads a tensor on the host or copies one from it, so
 the serving scheduler and the fixed-slot engine can capture their steps as
 CUDA graphs.
+
+Activations carry logical axes through ``distributed.sharding.constrain``
+at JAX's sites: the identity unless a rule set is active and the tensor is
+a DTensor (the sharded train step).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from repro_torch.core import kernel_routing as kr
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.quantize import pack_int4, unpack_int4
+from repro_torch.distributed.sharding import constrain, run_local
 from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
                                             paged_attn_plain, paged_attn_quant_plain)
 
@@ -69,6 +74,11 @@ __all__ = [
 ]
 
 _NEG_INF = torch.finfo(torch.float32).min
+# the dims of q (B, S, KV, G, hd) and k, v (B, S, KV, hd) along which
+# attention is independent: a sharded step attends on each rank's own rows
+# and KV heads (DTensor's einsum cannot flatten a sharded batch dim with a
+# sharded head dim)
+_ROW_AND_HEAD = (0, 2)
 
 
 class Dense(nn.Module):
@@ -486,7 +496,8 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     softcap = cfg.logit_softcap
     cross = memory is not None
 
-    q = dense_apply(p.wq, x, f"{layer_tag}.q").reshape(b, s, kv, g, hd)
+    q = constrain(dense_apply(p.wq, x, f"{layer_tag}.q"), "batch", "seq", "heads_flat")
+    q = q.reshape(b, s, kv, g, hd)
     if cross and cache is not None and "ck" in cache:
         k, v = cache["ck"], cache["cv"]
     else:
@@ -496,13 +507,17 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     if not cross and cfg.pos_embed == "rope":
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "kv_heads", None, None)
+    k = constrain(k, "batch", "seq" if not cross else None, "kv_heads", None)
+    v = constrain(v, "batch", "seq" if not cross else None, "kv_heads", None)
 
     if cross:
         if cache is not None and "ck" not in cache:
             cache = {"ck": k.to(torch.bfloat16), "cv": v.to(torch.bfloat16)}
         k_pos = torch.zeros((k.shape[1],), dtype=torch.int32, device=k.device)
-        o = _attn_dispatch(q, k.to(q.dtype), v.to(q.dtype), positions, k_pos, 0, False,
-                           softcap, cfg)
+        o = run_local(lambda q, k, v: _attn_dispatch(q, k, v, positions, k_pos, 0, False,
+                                                     softcap, cfg),
+                      q, k.to(q.dtype), v.to(q.dtype), dims=_ROW_AND_HEAD)
     elif cache is not None and "block_tables" in cache:
         if "token_slots" in cache:
             cache = cache | {"block_tables": cache["block_tables"][cache["token_slots"].long()]}
@@ -515,8 +530,11 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
         o = _attn_dispatch(q, ck, cv, positions, cache["slot_pos"], window, True, softcap,
                            cfg, k_min=cache.get("pad_len"))
     else:
-        o = _attn_dispatch(q, k, v, positions, positions, window, True, softcap, cfg)
-    out = dense_apply(p.wo, o.reshape(b, s, h * hd), f"{layer_tag}.o")
+        o = run_local(lambda q, k, v: _attn_dispatch(q, k, v, positions, positions, window,
+                                                     True, softcap, cfg),
+                      q, k, v, dims=_ROW_AND_HEAD)
+    o = constrain(o.reshape(b, s, h * hd), "batch", "seq", "heads_flat")
+    out = dense_apply(p.wo, o, f"{layer_tag}.o")
     if p.gate is not None:  # gated cross-attention
         out = torch.tanh(p.gate.to(out.dtype)) * out
     return out, cache
@@ -544,6 +562,7 @@ def mlp_apply(p: MLP, x: torch.Tensor, act_fn: str = "silu",
               layer_tag: str = "mlp") -> torch.Tensor:
     """The MLP (probe sites ``<layer_tag>.wi`` and ``<layer_tag>.wd``)."""
     hidden = act_apply(dense_apply(p.wi, x, f"{layer_tag}.wi"), act_fn)
+    hidden = constrain(hidden, "batch", "seq", "d_ff")
     return dense_apply(p.wd, hidden, f"{layer_tag}.wd")
 
 

@@ -40,6 +40,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.codebook import boundaries_from_centroids
 from repro_torch.core.quantize import pack_int4
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 
@@ -308,6 +309,7 @@ def block_apply(p: MambaBlock, x, cfg: ModelConfig, cache, positions=None):
     x = L.norm_apply(p.norm, x, cfg.norm, p.norm_bias)
     xz = L.dense_apply(p.in_proj, x, "mamba.in_proj")
     xs, z = xz[..., :di], xz[..., di:]
+    xs = constrain(xs, "batch", "seq", "d_inner")
     xs, slots, conv_new = conv_in(p, xs, cfg, cache)
     xs = F.silu(xs)
 
@@ -321,7 +323,7 @@ def block_apply(p: MambaBlock, x, cfg: ModelConfig, cache, positions=None):
     bx = (dt * xf)[..., None] * bmat[..., None, :]  # (B, S, di, N)
     hs, state_new = scan_state(a_bar, bx, cache, slots)
     y = torch.einsum("bsdn,bsn->bsd", hs, cmat) + p.D * xf
-    y = y.to(xs.dtype) * F.silu(z)
+    y = constrain(y.to(xs.dtype) * F.silu(z), "batch", "seq", "d_inner")
     out = L.dense_apply(p.out_proj, y, "mamba.out_proj")
     if cache is not None:
         cache = write_state(cache, state_new | {"conv": conv_new}, positions)

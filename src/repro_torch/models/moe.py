@@ -22,12 +22,14 @@ a packed step are routed and take capacity exactly as in JAX.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import run_replicated
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TransformerLM
@@ -131,7 +133,21 @@ def _combine(eo, slot, keep, sw, order, topi, dtype):
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, d) -> (out (B, S, d), Switch aux loss () float32)."""
+    """x (B, S, d) -> (out (B, S, d), Switch aux loss () float32).
+
+    On DTensors (the sharded train step) the routed experts run replicated,
+    the expert weights gathered as JAX gathers them at use: DTensor has no
+    sharding rules for the dispatch's index ops (``searchsorted``,
+    ``index_add_``, gathers at computed indices)."""
+    out, aux = run_replicated(functools.partial(_routed, cfg=cfg), x, p.router.w, p.wi, p.wd)
+    if p.shared is not None:
+        sg = torch.sigmoid(L.dense_apply(p.shared_gate, x).float())
+        out = out + sg.to(x.dtype) * L.mlp_apply(p.shared, x, cfg.act_fn, "shared_mlp")
+    return out, aux
+
+
+def _routed(x, router_w, wi, wd, cfg: ModelConfig):
+    """Routing, dispatch, the expert products and the combine: (out, aux)."""
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.n_experts
@@ -139,7 +155,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     tg = t // g
     cap = moe_capacity(tg, cfg)
     xg = x.reshape(g, tg, d)
-    gates, topw, topi = route(xg, p.router.w, k)
+    gates, topw, topi = route(xg, router_w, k)
 
     # Switch load balancing: E * <fraction of assignments to e> . <mean gate of e> / k
     counts = torch.zeros((e,), dtype=torch.float32, device=x.device)
@@ -149,16 +165,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig):
 
     expert_in, slot, _st, keep, sw, order = _dispatch(xg, topi, topw, e, cap)
     # expert products: (E, G * cap, d) @ (E, d, mult * f), then down
-    h = torch.bmm(expert_in.transpose(0, 1).reshape(e, g * cap, d), p.wi.to(x.dtype))
+    h = torch.bmm(expert_in.transpose(0, 1).reshape(e, g * cap, d), wi.to(x.dtype))
     h = L.act_apply(h, cfg.act_fn)
-    eo = torch.bmm(h, p.wd.to(x.dtype)).reshape(e, g, cap, d).transpose(0, 1)
+    eo = torch.bmm(h, wd.to(x.dtype)).reshape(e, g, cap, d).transpose(0, 1)
     out = _combine(eo.reshape(g, e * cap, d), slot, keep, sw, order, topi, x.dtype)
-    out = out.reshape(b, s, d)
-
-    if p.shared is not None:
-        sg = torch.sigmoid(L.dense_apply(p.shared_gate, x).float())
-        out = out + sg.to(x.dtype) * L.mlp_apply(p.shared, x, cfg.act_fn, "shared_mlp")
-    return out, aux
+    return out.reshape(b, s, d), aux
 
 
 def _ffn_init(cfg: ModelConfig, device):

@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 
@@ -65,7 +66,8 @@ class CrossBlock(nn.Module):
         x = x + a
         m = L.mlp_apply(self.mlp, L.norm_apply(self.norm2, x, cfg.norm, self.norm2_bias),
                         cfg.act_fn)
-        return x + torch.tanh(self.mlp_gate.to(m.dtype)) * m, cache
+        x = x + torch.tanh(self.mlp_gate.to(m.dtype)) * m
+        return constrain(x, "batch", "seq", "d_model"), cache
 
 
 class VisionLM(nn.Module):
@@ -121,7 +123,7 @@ class VisionLM(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
         x = transformer.embed_in(self, tokens, positions)
-        memory = image_embeds.to(x.dtype)
+        memory = constrain(image_embeds.to(x.dtype), "batch", None, "d_model")
         n_groups, n_self = groups(cfg)
         remat = (cfg.remat in ("block", "double") and caches is None
                  and torch.is_grad_enabled())

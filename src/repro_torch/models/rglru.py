@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba, transformer
 
@@ -154,7 +155,7 @@ def rec_block_apply(p: RecBlock, x, cfg: ModelConfig, cache, positions=None):
     residual = x
     n = L.norm_apply(p.norm1, x, cfg.norm, p.norm1_bias)
     y = F.gelu(L.dense_apply(p.lin_y, n, "rec.lin_y"), approximate="tanh")
-    u = L.dense_apply(p.lin_x, n, "rec.lin_x")
+    u = constrain(L.dense_apply(p.lin_x, n, "rec.lin_x"), "batch", "seq", "d_inner")
     u, slots, conv_new = mamba.conv_in(p, u, cfg, cache)
     a, gated = rglru_gates(p, u)
     hs, state_new = mamba.scan_state(a, gated, cache, slots)
@@ -164,4 +165,4 @@ def rec_block_apply(p: RecBlock, x, cfg: ModelConfig, cache, positions=None):
     x = x + L.mlp_apply(p.mlp, L.norm_apply(p.norm2, x, cfg.norm, p.norm2_bias), cfg.act_fn)
     if cache is not None:
         cache = mamba.write_state(cache, state_new | {"conv": conv_new}, positions)
-    return x, cache
+    return constrain(x, "batch", "seq_sp", "d_model"), cache

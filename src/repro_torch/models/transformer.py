@@ -20,10 +20,12 @@ import contextvars
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, gather_dim
 from repro_torch.models import layers as L
 
 __all__ = ["Block", "TransformerLM", "check_ported", "init", "apply", "init_caches",
@@ -56,14 +58,18 @@ class Block(nn.Module):
         n = L.norm_apply(self.norm1, x, cfg.norm, self.norm1_bias)
         a, cache = L.attention_apply(self.attn, n, cfg, positions=positions, cache=cache,
                                      window=cfg.sliding_window)
+        aux = None
         if cfg.parallel_blocks:
-            return x + a + L.mlp_apply(self.mlp, n, cfg.act_fn), cache, None
-        x = x + a
-        n = L.norm_apply(self.norm2, x, cfg.norm, self.norm2_bias)
-        if self.moe is not None:
-            m, aux = self.moe(n, cfg)
-            return x + m, cache, aux
-        return x + L.mlp_apply(self.mlp, n, cfg.act_fn), cache, None
+            x = x + a + L.mlp_apply(self.mlp, n, cfg.act_fn)
+        else:
+            x = x + a
+            n = L.norm_apply(self.norm2, x, cfg.norm, self.norm2_bias)
+            if self.moe is not None:
+                m, aux = self.moe(n, cfg)
+                x = x + m
+            else:
+                x = x + L.mlp_apply(self.mlp, n, cfg.act_fn)
+        return constrain(x, "batch", "seq_sp", "d_model"), cache, aux
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -140,11 +146,15 @@ def embed_in(lm: nn.Module, tokens: torch.Tensor, positions: torch.Tensor) -> to
     """The embedding of ``tokens`` (B, S) in the compute dtype, plus the
     sinusoidal positions where the config asks."""
     cfg = lm.cfg
-    x = lm.embed[tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    # on DTensors: DTensor's masked lookup into a vocab-sharded table and
+    # the backward of an index (``index_put``) on sharded tokens both fail,
+    # so the table's vocab is gathered and the lookup is ``F.embedding``
+    table = gather_dim(lm.embed, 0)
+    x = F.embedding(tokens.long(), table).to(getattr(torch, cfg.compute_dtype))
     if cfg.pos_embed == "sinusoidal":
         pe = L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
         x = x + (pe if positions.ndim == 2 else pe[None])
-    return x
+    return constrain(x, "batch", "seq_sp", "d_model")
 
 
 def logits_out(lm: nn.Module, x: torch.Tensor, last_only: bool, hidden_only: bool):
@@ -157,8 +167,10 @@ def logits_out(lm: nn.Module, x: torch.Tensor, last_only: bool, hidden_only: boo
     if hidden_only:
         return x
     if lm.cfg.tie_embeddings:
-        return (x @ lm.embed.to(x.dtype).T).float()
-    return L.dense_apply(lm.head, x).float()
+        logits = x @ lm.embed.to(x.dtype).T
+    else:
+        logits = L.dense_apply(lm.head, x)
+    return constrain(logits.float(), "batch", "seq", "vocab")
 
 
 def _norm_init(cfg: ModelConfig, dtype, device) -> tuple[torch.Tensor, torch.Tensor | None]:

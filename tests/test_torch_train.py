@@ -299,10 +299,38 @@ def test_family_loss_and_grads_match_jax(corpora, arch):
         assert _rel_l2(got[k], want) < 1e-4, (k, _rel_l2(got[k], want))
 
 
-def test_grad_compression_is_refused():
-    with pytest.raises(NotImplementedError, match="collectives"):
-        ttr.make_train_step(build(t_smoke("llama3_2_1b")),
-                            ttr.TrainConfig(grad_compression=True))
+def test_grad_compression_is_refused(tmp_path, corpora):
+    """``grad_compression`` is not refused: the step builds, the state
+    carries ``compress_err`` (float32, shaped like each parameter), and a
+    compressed Trainer saves it in JAX's layout and auto-resumes it bit for
+    bit (nonzero after two steps)."""
+    tc = ttr.TrainConfig(grad_compression=True)
+    model = build(t_smoke("llama3_2_1b"))
+    assert callable(ttr.make_train_step(model, tc))
+    state = ttr.init_train_state(model, 0, tc, device="cpu")
+    named = dict(state["params"].named_parameters())
+    assert state["compress_err"].keys() == named.keys()
+    for k, e in state["compress_err"].items():
+        assert e.shape == named[k].shape and e.dtype == torch.float32 and not e.any()
+
+    def trainer(ckpt_dir):
+        tc = ttr.TrainConfig(optimizer=topt.AdamWConfig(lr=2e-3), checkpoint_every=2,
+                             grad_compression=True, **TC)
+        pipe = tpipe.TokenPipeline(corpora[1].tokens, tpipe.DataConfig(16, 4, seed=0))
+        return ttr.Trainer(model, tc, pipe, ckpt_dir=ckpt_dir, seed=3, device="cpu")
+
+    first = trainer(tmp_path)
+    first.run(2, log=lambda s: None)
+    saved = _state_arrays(first)
+    errs = [k for k in saved if k.startswith("['state']['compress_err']")]
+    assert [k.replace("compress_err", "params", 1) for k in errs] == \
+        [k for k in saved if k.startswith("['state']['params']")]  # JAX's layout
+    assert any(np.any(saved[k]) for k in errs)
+    resumed = trainer(tmp_path)
+    assert resumed.step == 2
+    got = _state_arrays(resumed)
+    for k in errs:
+        np.testing.assert_array_equal(got[k], saved[k], err_msg=k)
 
 
 # ---------------------------------------------------------------------------
