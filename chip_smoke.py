@@ -213,6 +213,25 @@ Phases, each printing one JSON line:
               mesh), then llama3_2_1b at 2 layers of full width in float32
               on a (2, 1) mesh against the single-process card step within
               ``SHARDED_REL``.
+    row_parallel_qlinear -- a projection sharded on its input channels, as
+              each rank of a sharded serving step runs it (``qlinear_apply``
+              with ``k0``): llama3_2_1b's down projection in four windows on
+              the fused, streaming and static_dense routes, the partial sums
+              within ``ROW_PARALLEL_REL`` of the whole layer, each window
+              launching the whole layer's kernels, no plain route.
+
+20. launch_analysis -- ``repro_torch.launch.roofline.analyze_step`` on
+              fake tensors against the card, on phase 17b's step (llama3_2_1b
+              whole, bf16, remat, 16 x 64 tokens, unsharded): matmul FLOPs
+              equal to ``FlopCounterMode``'s count on the card, the predicted
+              peak within ``LAUNCH_PEAK_REL`` of ``max_memory_allocated``,
+              the measured step at least the roofline's largest term
+              (compute share at most ``LAUNCH_SHARE_MAX``).
+    launch_dryrun -- ``python -m repro_torch.launch.dryrun`` on this
+              machine's torch for ``LAUNCH_CELLS`` on the fake (16, 16)
+              mesh (started after the build, on the CPU, no card visible,
+              each on a core of its own that no timed phase uses, where the
+              cores allow): each ``ok`` and fitting 80 GB.
 
 ``--only group,...`` runs some groups (``PHASE_GROUPS``) and prints no
 result line. A ``timing`` line gives every phase's seconds.
@@ -3882,6 +3901,86 @@ def phase_sharded_2rank(smi_line) -> bool:
     return ok
 
 
+ROW_PARALLEL_REL = 1e-5  # four windows' partial sums vs the whole layer, of max |y|
+ROW_PARALLEL_SHARDS = 4
+# route name -> (QLinearConfig fields, the kernels each application launches)
+ROW_PARALLEL_ROUTES = {
+    "fused_topk": (dict(kernel="auto", detect_kernel="auto", detection="dynamic"),
+                   ("fused_lut_gemm", "topk_outlier")),
+    "streaming": (dict(kernel="jnp", detect_kernel="auto", detection="dynamic"),
+                  ("streaming_quantize_outlier",)),
+    "fused_static_dense": (dict(kernel="auto", detect_kernel="auto",
+                                detection="static_dense"), ("fused_lut_gemm",)),
+}
+
+
+def phase_row_parallel(dev) -> bool:
+    """Phase 19e: a row-parallel quantized projection on the card, what each
+    rank of a serving step whose weight is sharded on its input channels
+    runs (``qlinear_apply`` with ``k0``): llama3_2_1b's down projection
+    (8192 -> 2048, W4A4, bias), random codes and codebooks from a seed,
+    bfloat16 activations with outlier channels, split into
+    ``ROW_PARALLEL_SHARDS`` windows. For each of ``ROW_PARALLEL_ROUTES``, at
+    16 tokens (gather compensation) and 512 (scatter): the windows' partial
+    sums added up within ``ROW_PARALLEL_REL`` of max |y| of the whole
+    layer, every window launching the whole layer's kernels (the launches
+    exactly ``ROW_PARALLEL_SHARDS`` times the whole layer's, each listed
+    kernel launched), no plain route on the card."""
+    import torch
+
+    from repro_torch.core.qlinear import QLinearConfig, QLinearParams, qlinear_apply
+    from repro_torch.core.quantize import QuantizedWeight
+    from repro_torch.kernels import build as kb
+
+    k, n, shards = 8192, 2048, ROW_PARALLEL_SHARDS
+    g = torch.Generator(device="cpu").manual_seed(19)
+    qw = QuantizedWeight(packed=torch.randint(0, 256, (k, n // 2), generator=g,
+                                              dtype=torch.uint8).to(dev),
+                         codebook=torch.sort(torch.randn(16, generator=g)).values.to(dev),
+                         scale=(torch.rand(n, generator=g) * 0.02 + 0.01).to(dev),
+                         shape=(k, n), nbits=4)
+    book = torch.sort(torch.randn(16, generator=g)).values.to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    thr = (torch.tensor(-2.5, device=dev), torch.tensor(2.5, device=dev))
+    cases, ok = [], True
+    for route, (fields, kernels) in ROW_PARALLEL_ROUTES.items():
+        cfg = QLinearConfig(w_bits=4, a_bits=4, outlier_frac=0.005, **fields)
+        p = QLinearParams(qw=qw, act_codebook=book, bias=bias, thr_lo=thr[0], thr_hi=thr[1],
+                          cfg=cfg)
+        for m in (16, 512):
+            x = torch.randn(m, k, generator=g) * 1.5
+            x[:, torch.randint(0, k, (24,), generator=g)] *= 6.0  # outlier channels
+            x = x.to(dev, torch.bfloat16)
+            reset_counts()
+            whole = qlinear_apply(p, x, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            once = {kk: kb.LAUNCHES[kk] for kk in kb.KERNELS}
+            reset_counts()
+            part = torch.zeros_like(whole)
+            w = k // shards
+            for i in range(shards):
+                rows = dataclasses.replace(qw, packed=qw.packed[i * w:(i + 1) * w],
+                                           shape=(w, n))
+                pi = dataclasses.replace(p, qw=rows, bias=bias if i == 0 else None)
+                part += qlinear_apply(pi, x, k0=i * w, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            got = {kk: kb.LAUNCHES[kk] for kk in kb.KERNELS}
+            plain = {kk: v for kk, v in kb.PLAIN_ON_CUDA.items() if v}
+            err = (part - whole).abs().max().item()
+            top = whole.abs().max().item()
+            case_ok = (bool(torch.isfinite(part).all()) and err <= ROW_PARALLEL_REL * top
+                       and got == {kk: shards * v for kk, v in once.items()}
+                       and all(once[kk] > 0 for kk in kernels) and not plain)
+            ok &= case_ok
+            cases.append(dict(route=route, tokens=m, max_abs_err=err, max_abs_y=top,
+                              launches_whole={kk: v for kk, v in once.items() if v},
+                              launches_windows={kk: v for kk, v in got.items() if v},
+                              plain_on_cuda=plain, ok=case_ok))
+    emit("row_parallel_qlinear", k=k, n=n, shards=shards, tol_rel=ROW_PARALLEL_REL,
+         cases=cases, ok=ok)
+    return ok
+
+
 def phase_distributed_group(dev, smi_line) -> dict:
     """Phase 19 (group ``distributed``). Returns {check: passed}."""
     import torch
@@ -3890,7 +3989,192 @@ def phase_distributed_group(dev, smi_line) -> dict:
     for name, run in (("collectives", lambda: phase_collectives(dev)),
                       ("grad compression", lambda: phase_grad_compression(dev, smi_line)),
                       ("sharded train nccl", lambda: phase_sharded_nccl(dev)),
-                      ("sharded train 2 ranks", lambda: phase_sharded_2rank(smi_line))):
+                      ("sharded train 2 ranks", lambda: phase_sharded_2rank(smi_line)),
+                      ("row-parallel qlinear", lambda: phase_row_parallel(dev))):
+        try:
+            out[name] = bool(run())
+        except Exception:
+            traceback.print_exc()
+            out[name] = False
+        torch.cuda.empty_cache()
+    return out
+
+
+# the launch group's dry-run cells, each one subprocess on a fake 256-rank
+# process group (CPU only), started after the build so they overlap the run
+# on cores of their own
+LAUNCH_CELLS = (("llama3_2_1b", "decode_32k"), ("granite_moe_3b_a800m", "train_4k"))
+LAUNCH_DRYRUN_WAIT_S = 900  # the longest the group waits for them
+LAUNCH_PEAK_REL = 0.10  # predicted peak bytes vs the card's max_memory_allocated
+LAUNCH_SHARE_MAX = 1.05  # compute term over the measured step: a bound, so <= 1
+
+
+def cpu_budget() -> tuple[list[int], float | None]:
+    """The cores this process may run on and the cgroup's CPU quota in
+    cores (None where ``cpu.max`` sets none or cannot be read)."""
+    import os
+
+    cores = sorted(os.sched_getaffinity(0))
+    try:
+        quota, period = pathlib.Path("/sys/fs/cgroup/cpu.max").read_text().split()
+        return cores, None if quota == "max" else int(quota) / int(period)
+    except (OSError, ValueError):
+        return cores, None
+
+
+def pin_threads(cores) -> None:
+    """Every thread of this process onto ``cores``; threads and processes
+    it starts later inherit them."""
+    import os
+
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(OSError):  # a thread that has just ended
+            os.sched_setaffinity(int(tid), cores)
+
+
+def start_launch_dryruns() -> tuple[list, dict]:
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    ``LAUNCH_CELLS`` on the single mesh, writing under ``build/launch/``,
+    with no card visible. They run on the CPU beside every later timed
+    phase, so each gets a core of its own and this process (with all it
+    starts later) the others, all within the cgroup's quota: the timed
+    phases share no core with them. Returns ([(arch, shape, process, start
+    time)], the pinning)."""
+    import os
+    import shutil
+
+    out = ROOT / "build" / "launch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT / "src"),
+                                                       os.environ.get("PYTHONPATH")]))}
+    cores, quota = cpu_budget()
+    usable = cores[:int(quota)] if quota else cores
+    n = len(LAUNCH_CELLS)
+    pinning = dict(cores=cores, cgroup_quota_cores=quota, main=cores, dryrun=None)
+    if len(usable) >= n + 4:
+        pinning.update(main=usable[:-n], dryrun=usable[-n:])
+        pin_threads(set(pinning["main"]))
+    procs = []
+    for i, (arch, shape) in enumerate(LAUNCH_CELLS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", str(out), "--save-trace"]
+        with open(out / f"{arch}__{shape}.log", "w") as log:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT)
+        if pinning["dryrun"]:
+            os.sched_setaffinity(proc.pid, {pinning["dryrun"][i]})
+        procs.append((arch, shape, proc, time.perf_counter()))
+    emit("launch_pinning", **pinning)
+    return procs, pinning
+
+
+def phase_launch_dryrun(procs) -> bool:
+    """Phase 20a: the dry-run cells, on this machine's torch: each must end
+    ``ok`` and fit 80 GB. Reports each cell's trace seconds, wall seconds
+    from its start, peak GB per device, roofline terms and bottleneck."""
+    cells, ok = {}, True
+    deadline = time.perf_counter() + LAUNCH_DRYRUN_WAIT_S
+    for arch, shape, proc, t0 in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        wall = time.perf_counter() - t0
+        path = ROOT / "build" / "launch" / f"{arch}__{shape}__single.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        cell_ok = rc == 0 and rec["status"] == "ok" and rec["memory_analysis"]["fits_80GB"]
+        ok &= cell_ok
+        log = (ROOT / "build" / "launch" / f"{arch}__{shape}.log").read_text()
+        cells[f"{arch}/{shape}"] = (
+            {"status": rec["status"], "rc": rc, "wall_s": wall, "ok": cell_ok,
+             "error": rec.get("error"), "log_tail": log[-1500:]} if rec["status"] != "ok" else
+            {"status": "ok", "rc": rc, "wall_s": wall, "trace_s": rec["trace_s"],
+             "per_device_gb": rec["memory_analysis"]["per_device_hbm_bytes"] / 1e9,
+             "fits_80GB": rec["memory_analysis"]["fits_80GB"],
+             "matmul_flops": rec["step_analysis"]["matmul_flops"],
+             "collective_gb": rec["step_analysis"]["collective_bytes"] / 1e9,
+             "roofline": rec["roofline"], "ok": cell_ok})
+    emit("launch_dryrun", mesh=[16, 16], cells=cells, ok=ok)
+    return ok
+
+
+def phase_launch_analysis(dev, smi_line) -> bool:
+    """Phase 20b: ``launch.roofline.analyze_step`` on fake tensors against
+    the card, on the ``train`` group's step: llama3_2_1b whole (bf16,
+    remat), 16 x 64 tokens, unsharded, no hand kernel on its path. The
+    fake run's matmul FLOPs must equal ``FlopCounterMode``'s count of the
+    same ops on the card exactly, its peak live bytes be within
+    ``LAUNCH_PEAK_REL`` of ``torch.cuda.max_memory_allocated`` over a step,
+    and the measured ms per step be at least the roofline's largest term
+    (compute share at most ``LAUNCH_SHARE_MAX``)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.roofline import MATMUL_OPS, analyze_step, roofline_terms
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    model = train_model()
+    tc = example_train_config(10)
+    step = make_train_step(model, tc)
+    tokens = torch.randint(0, model.cfg.vocab_size, (16, 65), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    state = init_train_state(model, 0, tc, device=dev)
+    batch = {"tokens": tokens.to(dev)}
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch)
+    torch.cuda.synchronize()
+    card_flops = sum(v for k, v in counter.get_flop_counts()["Global"].items()
+                     if k in MATMUL_OPS)
+    del counter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = sorted(times)[len(times) // 2] * 1e3
+    del state, batch
+    torch.cuda.empty_cache()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fstate = init_train_state(model, 0, tc, device=dev)
+        fbatch = {"tokens": torch.zeros((16, 65), dtype=torch.int32, device=dev)}
+    a = analyze_step(step, fstate, fbatch)
+    rr = roofline_terms(a)
+    largest = max(rr.compute_s, rr.memory_s, rr.collective_s) * 1e3
+    share = rr.compute_s * 1e3 / ms
+    peak_rel = (a["peak_bytes"] - card_peak) / card_peak
+    ok = (a["matmul_flops"] == card_flops and abs(peak_rel) <= LAUNCH_PEAK_REL
+          and ms >= largest and share <= LAUNCH_SHARE_MAX)
+    emit("launch_analysis", arch=model.cfg.arch_id, layers=model.cfg.n_layers,
+         param_dtype=model.cfg.param_dtype, remat=model.cfg.remat, batch=[16, 64],
+         fake_matmul_flops=a["matmul_flops"], card_matmul_flops=card_flops,
+         flops_by_op=a["flops_by_op"], predicted_peak_gb=a["peak_bytes"] / 1e9,
+         argument_gb=a["argument_bytes"] / 1e9, card_peak_gb=card_peak / 1e9,
+         peak_rel=peak_rel, peak_bound=LAUNCH_PEAK_REL, ms_per_step=ms,
+         step_ms=[t * 1e3 for t in times], roofline_ms={
+             "compute": rr.compute_s * 1e3, "memory": rr.memory_s * 1e3,
+             "collective": rr.collective_s * 1e3},
+         bottleneck=rr.bottleneck, compute_share=share, share_max=LAUNCH_SHARE_MAX,
+         fake_ops=a["n_ops"], analysis_s=a["seconds"], card=smi_line, ok=ok)
+    return ok
+
+
+def phase_launch_group(dev, smi_line, procs) -> dict:
+    """Phase 20 (group ``launch``). Returns {check: passed}."""
+    import torch
+
+    out = {}
+    for name, run in (("launch analysis", lambda: phase_launch_analysis(dev, smi_line)),
+                      ("launch dry run", lambda: phase_launch_dryrun(procs))):
         try:
             out[name] = bool(run())
         except Exception:
@@ -3901,7 +4185,7 @@ def phase_distributed_group(dev, smi_line) -> dict:
 
 
 PHASE_GROUPS = ("kernels", "family_kernels", "llama", "swa", "dense_variants", "moe",
-                "recurrent", "train", "vlm", "distributed")
+                "recurrent", "train", "vlm", "distributed", "launch")
 
 
 def main(argv: list[str]) -> int:
@@ -3964,6 +4248,7 @@ def main(argv: list[str]) -> int:
     emit("build_lut", **{k: ptxas_report(kb.BUILD_LOG.get(k, "")) for k in ("fused_lut_gemm",
                                                                              "lut_gemm")})
     lap("build")
+    launch_procs, pinning = start_launch_dryruns() if "launch" in only else ([], None)
     results = {}
     if "kernels" in only:
         results = phase_kernels(dev)
@@ -4026,16 +4311,23 @@ def main(argv: list[str]) -> int:
                        ("recurrent", lambda: phase_recurrent(dev, smi_line)),
                        ("vlm", lambda: phase_vlm(dev, smi_line)),
                        ("train", lambda: phase_train_group(dev, smi_line)),
-                       ("distributed", lambda: phase_distributed_group(dev, smi_line))):
+                       ("distributed", lambda: phase_distributed_group(dev, smi_line)),
+                       ("launch", lambda: phase_launch_group(dev, smi_line, launch_procs))):
         if group in only:
             torch.cuda.empty_cache()
             guarded(group, run)
+    for *_, proc, _ in launch_procs:  # a group that failed early left them running
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if pinning and pinning["dryrun"]:
+        pin_threads(set(pinning["cores"]))
     emit("timing", seconds=seconds, total_s=sum(seconds.values()))
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
     if not {"kernels", "llama", "swa", "dense_variants", "moe", "recurrent", "train",
-            "vlm", "distributed"} <= only:
+            "vlm", "distributed", "launch"} <= only:
         print(f"chip_smoke: the groups {sorted(only)} passed (a partial run: no result line)")
         return 0
 

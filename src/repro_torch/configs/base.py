@@ -76,6 +76,48 @@ class ModelConfig:
         """Vocab padded to a multiple of 128 (the embedding table's rows)."""
         return (self.vocab_size + 127) // 128 * 128
 
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks), JAX's formula:
+        the roofline's model FLOPs and the dry run's FSDP choice read it."""
+        d, v = self.d_model, self.vocab_padded
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        hd = self.head_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        gate_mult = 3 if self.act_fn in ("silu", "gelu") else 2
+        mlp = gate_mult * d * self.d_ff
+        if self.family == "moe":
+            mlp = self.n_experts * gate_mult * d * self.d_ff + d * self.n_experts
+            mlp += self.n_shared_experts * gate_mult * d * self.shared_expert_d_ff
+        if self.family == "ssm":
+            di, n, r = self.d_inner, self.ssm_state, self.dt_rank
+            per_layer = (d * 2 * di + di * (r + 2 * n) + r * di + di * d + di * self.ssm_conv
+                         + di * n)
+            return emb + self.n_layers * per_layer
+        per_layer = attn + mlp
+        if self.family == "hybrid":
+            # recurrent and attention blocks; JAX's approximation of each
+            di = self.d_inner or d
+            rec = 2 * d * di + di * d + 3 * di * self.ssm_conv + 2 * di
+            n_rec = sum(1 for b in self.expanded_pattern() if b == "rec")
+            return emb + (self.n_layers - n_rec) * (attn + mlp) + n_rec * (rec + mlp)
+        if self.family == "vlm" and self.cross_attn_every:
+            n_cross = self.n_layers // self.cross_attn_every
+            per_layer_cross = attn + mlp + 2 * d  # gates
+            return emb + (self.n_layers - n_cross) * per_layer + n_cross * per_layer_cross
+        return emb + self.n_layers * per_layer
+
+    @property
+    def n_active_params(self) -> int:
+        """Parameters a token passes through: ``n_params``, but for MoE only
+        the routed experts' ``experts_per_token`` of ``n_experts``."""
+        if self.family != "moe":
+            return self.n_params
+        d = self.d_model
+        gate_mult = 3 if self.act_fn in ("silu", "gelu") else 2
+        dense_side = self.n_params - self.n_layers * self.n_experts * gate_mult * d * self.d_ff
+        return dense_side + self.n_layers * self.experts_per_token * gate_mult * d * self.d_ff
+
     def supports_long_context(self) -> bool:
         """True iff attention cost and memory are bounded (SSM, window, hybrid)."""
         if self.family in ("ssm", "hybrid"):

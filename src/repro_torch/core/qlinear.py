@@ -33,6 +33,7 @@ from typing import Literal
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 import repro_torch.core.kernel_routing as kr
 import repro_torch.core.numerics as nx
@@ -176,12 +177,24 @@ def _tokens(x: torch.Tensor) -> int:
 
 
 def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
-                  cfg: QLinearConfig | None = None) -> torch.Tensor:
-    """Dual-branch forward; the output dtype follows ``x``."""
+                  cfg: QLinearConfig | None = None, *, k0: int = 0,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Dual-branch forward; the output dtype follows ``x`` unless given.
+
+    ``k0``: the weight holds input channels ``[k0, k0 + K')`` of the ``K``
+    that ``x`` has (a row-parallel shard). Then the token scale and the
+    outlier detection run over the whole row, as unsharded, and the
+    indices, the main branch and the compensation of the outliers that fall
+    among these channels over the window: a partial sum over it. The routes
+    are the unsharded layer's; the quality probes run on whole layers only."""
     if isinstance(p, QLinear):
         p = p.params
     cfg = p.cfg if cfg is None else cfg.validate()
-    out_dtype = x.dtype
+    if isinstance(x, DTensor) or isinstance(p.qw.packed, DTensor):
+        return _qlinear_sharded(p, x, cfg)
+    k1 = k0 + p.qw.shape[0]
+    window = (k0, k1) != (0, x.shape[-1])
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     a_nbits = int(p.act_codebook.shape[0]).bit_length() - 1
     tier = f"w{p.qw.nbits}a{a_nbits}"
     mul_form = x.dtype == torch.bfloat16
@@ -210,14 +223,18 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
             else:
                 kr.record_detect_dispatch(tier, "jnp")
 
+    # a window's indices take the whole row's scale
+    scale = qz.token_scale(x, cfg.scale_mode) if window else None
+    xw = x[..., k0:k1] if window else x
+
     # ---- main branch: LUT-GEMM over all activations ------------------------
     qa = None
     outs = None
     if route == "pallas":
         from repro_torch.kernels import ops as kops
 
-        y = kops.lut_gemm_fused(x, p.act_codebook, p.qw, scale_mode=cfg.scale_mode,
-                                out_dtype=cfg.compute_dtype)
+        y = kops.lut_gemm_fused(xw, p.act_codebook, p.qw, scale_mode=cfg.scale_mode,
+                                out_dtype=cfg.compute_dtype, scale=scale)
     else:
         if detect_route == "pallas" and cfg.detection == "dynamic" and a_nbits <= 4:
             from repro_torch.kernels import ops as kops
@@ -225,17 +242,19 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
             # the streaming kernel: indices and outlier set from one read
             qa, outs = kops.quantize_outlier_streaming(x, p.act_codebook, k_out,
                                                        cfg.scale_mode)
+            if window:
+                qa = dataclasses.replace(qa, idx=qa.idx[..., k0:k1])
         else:
-            qa = qz.quantize_activation(x, p.act_codebook, cfg.scale_mode)
+            qa = qz.quantize_activation(xw, p.act_codebook, cfg.scale_mode, scale=scale)
         y = _lut_gemm_plain(qa, p.qw, out_dtype=cfg.compute_dtype,
                             compute_dtype=cfg.compute_dtype)
 
     # ---- outlier branch ----------------------------------------------------
     if cfg.detection == "static_dense" and cfg.outlier_frac > 0:
         if qa is None:
-            qa = qz.quantize_activation(x, p.act_codebook, cfg.scale_mode)
+            qa = qz.quantize_activation(xw, p.act_codebook, cfg.scale_mode, scale=scale)
         deq = qz.dequantize_activation(qa, dtype=cfg.compute_dtype)
-        xf = x.to(cfg.compute_dtype)
+        xf = xw.to(cfg.compute_dtype)
         mask = (xf > p.thr_hi) | (xf < p.thr_lo)
         r = torch.where(mask, xf - deq, torch.zeros_like(xf))
         w = p.qw.dequantize_rows().to(cfg.compute_dtype)
@@ -250,6 +269,10 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
                 outs = ol.detect_outliers_topk(x.float(), k_out)
             else:
                 outs = ol.detect_outliers_static(x.float(), p.thr_lo, p.thr_hi, k_out)
+        if window:  # the outliers among the window's channels, at their rows
+            here = ((outs.channels >= k0) & (outs.channels < k1)).to(outs.mask.dtype)
+            outs = ol.OutlierSet(values=outs.values, mask=outs.mask * here,
+                                 channels=torch.clamp(outs.channels - k0, 0, k1 - k0 - 1))
         if qa is None:
             r = ol.outlier_residuals_direct(outs, qz.token_scale(x, cfg.scale_mode),
                                             p.act_codebook, mul_form=mul_form)
@@ -263,7 +286,7 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
                 else ol.compensate_scatter(r, outs, p.qw, cfg.compute_dtype))
         y = y + comp
 
-    if cfg.probe and nx.collecting():
+    if cfg.probe and nx.collecting() and not window:
         # quality probes (the quality telemetry level only): reductions on
         # the intermediates above; y is never touched
         nx.probe_qlinear(p, x, qa=qa, outs=outs, k_out=k_out,
@@ -273,3 +296,58 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
     if p.bias is not None:
         y = y + p.bias.to(cfg.compute_dtype)
     return y.to(out_dtype)
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _qlinear_sharded(p: QLinearParams, x: torch.Tensor, cfg: QLinearConfig) -> torch.Tensor:
+    """:func:`qlinear_apply` on DTensors (a sharded serving step), one local
+    site: DTensor has no rules for the nibble unpacking, the codebook
+    gathers or the top-k. Each rank takes its own token rows of x with the
+    channel dim whole (gathered: the token scale and the outlier detection
+    must see the whole row, as in JAX) and runs :func:`qlinear_apply` on
+    its shard of the weight, on the unsharded layer's routes. A weight
+    sharded on its output channels ("model", column-parallel) gives each
+    rank its own columns, a ``Shard`` of the output. One sharded on its
+    input channels (row-parallel) gives each rank the partial sum over its
+    own channels (``k0``), reduced here in ``compute_dtype``, with the
+    bias added on the first shard only."""
+    ref = x if isinstance(x, DTensor) else p.qw.packed
+    mesh = ref.device_mesh
+    rows = ([pl if isinstance(pl, Shard) and pl.dim < x.ndim - 1 else Replicate()
+             for pl in x.placements] if isinstance(x, DTensor) else [Replicate()] * mesh.ndim)
+    xl = x.redistribute(mesh, rows).to_local() if isinstance(x, DTensor) else x
+    wpl = list(p.qw.packed.placements) if isinstance(p.qw.packed, DTensor) else []
+    col = [i for i, pl in enumerate(wpl) if isinstance(pl, Shard) and pl.dim == 1]
+    row = [i for i, pl in enumerate(wpl) if isinstance(pl, Shard) and pl.dim == 0]
+    if len(col) + len(row) > 1:
+        raise NotImplementedError(f"a quantized weight sharded as {wpl}: one mesh dim "
+                                  "over its input or its output channels only")
+    k, n = p.qw.shape
+    packed = _local(p.qw.packed)
+    per_byte = 2 if p.qw.nbits <= 4 else 1
+    coord = mesh.get_coordinate()
+    shape = (*x.shape[:-1], n)
+    stride = torch.empty(shape, device="meta").stride()
+    out = rows.copy()
+    bias = _local(p.bias)
+    k0 = 0
+    if row:
+        out[row[0]] = Partial()
+        k, k0 = packed.shape[0], coord[row[0]] * packed.shape[0]
+        bias = bias if coord[row[0]] == 0 else None
+    n_local = packed.shape[1] * per_byte
+    if col:
+        out[col[0]] = Shard(len(shape) - 1)
+        if bias is not None and bias.shape[-1] != n_local:
+            bias = bias[..., coord[col[0]] * n_local : (coord[col[0]] + 1) * n_local]
+    qw = qz.QuantizedWeight(packed=packed, codebook=_local(p.qw.codebook),
+                            scale=_local(p.qw.scale), shape=(k, n_local), nbits=p.qw.nbits)
+    local = QLinearParams(qw=qw, act_codebook=_local(p.act_codebook), bias=bias,
+                          thr_lo=_local(p.thr_lo), thr_hi=_local(p.thr_hi), cfg=cfg)
+    y = qlinear_apply(local, xl, cfg, k0=k0,
+                      out_dtype=cfg.compute_dtype if row else None)
+    y = DTensor.from_local(y, mesh, out, run_check=False, shape=shape, stride=stride)
+    return y.redistribute(mesh, rows).to(x.dtype) if row else y

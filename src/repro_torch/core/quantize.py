@@ -161,10 +161,13 @@ def bucketize_mul_form(x: torch.Tensor, scale: torch.Tensor,
 
 
 def quantize_activation(x: torch.Tensor, codebook: torch.Tensor,
-                        scale_mode: ScaleMode = "rms") -> QuantizedActivation:
+                        scale_mode: ScaleMode = "rms",
+                        scale: torch.Tensor | None = None) -> QuantizedActivation:
     """bf16 inputs: int8 sum of compares against ``s * b_i``; float32 inputs:
-    ``searchsorted`` of ``x / s`` (bit-equal to nearest-centroid argmin)."""
-    s = token_scale(x, scale_mode)
+    ``searchsorted`` of ``x / s`` (bit-equal to nearest-centroid argmin).
+    ``scale``: the per-token scale, when ``x`` is a slice of the channels
+    it was taken over (else ``token_scale(x, scale_mode)``)."""
+    s = token_scale(x, scale_mode) if scale is None else scale
     nbits = int(codebook.shape[0]).bit_length() - 1
     if x.dtype == torch.bfloat16:
         b = cb.boundaries_from_centroids(codebook)

@@ -15,8 +15,11 @@ meta device), so they compare with JAX's leaf by leaf. :func:`parameter_specs`
 maps each leaf to the port's ``nn.Parameter``s: a stacked leaf of a scanned
 config, ``(L, ...)`` or the vlm's ``(G, n_self, ...)``, is one parameter per
 layer, and each takes the leaf's spec without its stack axes.
-:func:`distribute_params` then replaces every parameter in place by a
-DTensor with those placements.
+:func:`distribute_params` then replaces every parameter (and every buffer
+of a ``QLinear``, the quantized leaves) in place by a DTensor with those
+placements. The caches go the same way: :func:`cache_tree` gives the
+port's per-layer caches in JAX's layout for :func:`build_cache_specs`, and
+:func:`distribute_caches` places them.
 """
 
 from __future__ import annotations
@@ -24,14 +27,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.qlinear import QLinearParams
+from repro_torch.core.qlinear import QLinear, QLinearParams
 from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.distributed.sharding import (P, PartitionSpec, distribute_replicated,
                                               placements_for)
 from repro_torch.models.model import tree_from_params
 
 __all__ = ["build_param_specs", "build_cache_specs", "flatten_specs", "param_shapes",
-           "leaf_parameters", "parameter_specs", "distribute_params"]
+           "leaf_parameters", "parameter_specs", "distribute_params", "cache_tree",
+           "distribute_caches"]
 
 # parent linear name -> "col" (shard last dim) | "row" (shard first matrix dim)
 _COL = {
@@ -235,23 +239,34 @@ def param_shapes(params: nn.Module) -> dict:
     return tree_from_params(params, lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"))
 
 
+def _named_leaves(params: nn.Module) -> list[tuple[str, torch.Tensor]]:
+    """The model's parameters, then the buffers of its ``QLinear`` modules
+    (the quantized leaves), by name."""
+    out = list(params.named_parameters())
+    for mname, m in params.named_modules():
+        if isinstance(m, QLinear):
+            out += [(f"{mname}.{b}", t) for b, t in m.named_buffers(recurse=False)]
+    return out
+
+
 def leaf_parameters(params: nn.Module) -> dict[str, tuple[tuple[int, ...], list[str]]]:
-    """``{JAX leaf path "a/b/c": (stack shape, parameter names)}`` for the
-    float leaves of the port's model: a stacked leaf of a scanned config
-    holds its layers' parameters in the stack's row-major order (its stack
-    shape ``(L,)`` or the vlm's ``(G, n_self)``); an unstacked leaf holds one
-    parameter, stack shape ``()``."""
-    names = [n for n, _ in params.named_parameters()]
-    index = {id(p): i for i, (_, p) in enumerate(params.named_parameters())}
-    idx_tree = tree_from_params(params, lambda p: torch.tensor(index[id(p)]))
-    return {"/".join(path): (tuple(idx.shape), [names[i] for i in idx.reshape(-1).tolist()])
-            for path, idx in _flatten(idx_tree, into_quantized=False)}
+    """``{JAX leaf path "a/b/c": (stack shape, tensor names)}`` for the
+    leaves of the port's model (a quantized one's ``QLinear`` buffers too,
+    ``.../wq/qw/packed``): a stacked leaf of a scanned config holds its
+    layers' tensors in the stack's row-major order (its stack shape
+    ``(L,)`` or the vlm's ``(G, n_self)``); an unstacked leaf holds one
+    tensor, stack shape ``()``."""
+    leaves = _named_leaves(params)
+    index = {id(t): i for i, (_, t) in enumerate(leaves)}
+    idx_tree = tree_from_params(params, lambda t: torch.tensor(index[id(t)]))
+    return {"/".join(path): (tuple(idx.shape), [leaves[i][0] for i in idx.reshape(-1).tolist()])
+            for path, idx in _flatten(idx_tree)}
 
 
 def parameter_specs(params: nn.Module, specs) -> dict[str, PartitionSpec]:
-    """``{parameter name: spec}`` for every float parameter of the port's
-    model, from a spec tree of :func:`build_param_specs` over its
-    :func:`param_shapes`. A stacked leaf's spec loses its stack axes; a
+    """``{tensor name: spec}`` for every parameter of the port's model (and
+    ``QLinear`` buffer), from a spec tree of :func:`build_param_specs` over
+    its :func:`param_shapes`. A stacked leaf's spec loses its stack axes; a
     spec that shards a stack axis raises, naming the leaf."""
     flat = flatten_specs(specs)
     out = {}
@@ -266,14 +281,58 @@ def parameter_specs(params: nn.Module, specs) -> dict[str, PartitionSpec]:
 
 
 def distribute_params(params: nn.Module, specs, mesh) -> nn.Module:
-    """Replace each float parameter of ``params`` in place by a DTensor on
-    ``mesh`` with the placements of its spec (``requires_grad=False``, as the
-    port builds its parameters). Every rank must hold the same values (the
-    seeded init): each keeps its own slice. Returns ``params``."""
+    """Replace each parameter (and ``QLinear`` buffer) of ``params`` in place
+    by a DTensor on ``mesh`` with the placements of its spec (parameters
+    ``requires_grad=False``, as the port builds them). Every rank must hold
+    the same values (the seeded init): each keeps its own slice. Returns
+    ``params``."""
     for name, spec in parameter_specs(params, specs).items():
         prefix, _, leaf = name.rpartition(".")
         mod = params.get_submodule(prefix) if prefix else params
-        p = getattr(mod, leaf)
-        d = distribute_replicated(p.data, mesh, placements_for(spec, mesh))
-        setattr(mod, leaf, nn.Parameter(d, requires_grad=False))
+        t = getattr(mod, leaf)
+        d = distribute_replicated(t.data, mesh, placements_for(spec, mesh))
+        if leaf in mod._buffers:
+            mod._buffers[leaf] = d
+        else:
+            setattr(mod, leaf, nn.Parameter(d, requires_grad=False))
     return params
+
+
+def cache_tree(caches: list[dict], cfg) -> dict | list:
+    """The port's per-layer caches (a list of dicts) in the JAX package's
+    layout, as meta tensors of the stacked shapes: one dict of ``(L, ...)``
+    leaves for a scanned config, the vlm's ``{"self": (G, n_self, ...),
+    "cross": (G, ...)}``, and the list itself (as meta tensors) otherwise."""
+    meta = lambda t, stack=(): torch.empty((*stack, *t.shape), dtype=t.dtype, device="meta")
+    stacked = lambda layers, stack: {k: meta(v, stack) for k, v in layers[0].items()}
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        groups = cfg.n_layers // per
+        return {"self": stacked(caches, (groups, per - 1)),
+                "cross": stacked(caches[per - 1 :: per], (groups,))}
+    if cfg.scan_layers:
+        return stacked(caches, (len(caches),))
+    return [{k: meta(v) for k, v in layer.items()} for layer in caches]
+
+
+def distribute_caches(caches: list[dict], cfg, specs, mesh) -> list[dict]:
+    """The caches as DTensors on ``mesh`` with the placements of their
+    leaves' specs, a spec tree of :func:`build_cache_specs` over
+    :func:`cache_tree` (stack axes dropped; they are never sharded). Every
+    rank must hold the same values: each keeps its own slice."""
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        layer_specs = [specs["cross"] if i % per == per - 1 else specs["self"]
+                       for i in range(len(caches))]
+    elif cfg.scan_layers:
+        layer_specs = [specs] * len(caches)
+    else:
+        layer_specs = specs
+    out = []
+    for layer, sp in zip(caches, layer_specs):
+        placed = {}
+        for k, t in layer.items():
+            spec = sp[k][len(sp[k]) - t.ndim:]
+            placed[k] = distribute_replicated(t, mesh, placements_for(spec, mesh))
+        out.append(placed)
+    return out

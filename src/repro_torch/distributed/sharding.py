@@ -42,7 +42,6 @@ __all__ = [
     "placements_for",
     "replicate",
     "run_local",
-    "run_replicated",
     "spec_for",
     "use_rules",
 ]
@@ -149,7 +148,13 @@ def distribute_replicated(t: torch.Tensor, mesh, placements) -> DTensor:
     init, a batch every rank drew), as a DTensor with ``placements``: each
     rank keeps its own slice, with no communication."""
     full = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-    return full.redistribute(mesh, placements)
+    out = full.redistribute(mesh, placements)
+    local = out.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        # a slice of t: the shard owns its bytes, so the rank does not keep t whole
+        out = DTensor.from_local(local.clone(), mesh, placements, run_check=False,
+                                 shape=out.shape, stride=out.stride())
+    return out
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:
@@ -176,23 +181,6 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     keep = [Replicate() if (isinstance(p, Shard) and p.dim == d) or p.is_partial() else p
             for p in x.placements]
     return x if keep == list(x.placements) else x.redistribute(x.device_mesh, keep)
-
-
-def run_replicated(fn, *args):
-    """``fn(*args)`` on the whole local values of its DTensor arguments,
-    gathered to ``Replicate``; its tensor results come back as replicated
-    DTensors. For a region of ops that DTensor has no sharding rules for:
-    every rank computes all of it, so every gradient through it is
-    replicated too. Without DTensor arguments, just ``fn(*args)``."""
-    dts = [a for a in args if isinstance(a, DTensor)]
-    if not dts:
-        return fn(*args)
-    mesh = dts[0].device_mesh
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*[a.redistribute(mesh, rep).to_local() if isinstance(a, DTensor) else a
-               for a in args])
-    wrap = lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
-    return tuple(wrap(t) for t in out) if isinstance(out, tuple) else wrap(out)
 
 
 def run_local(fn, x: torch.Tensor, *args, dims: tuple[int, ...]):

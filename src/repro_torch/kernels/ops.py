@@ -122,18 +122,19 @@ def lut_gemm(qa: QuantizedActivation, qw: QuantizedWeight,
 
 def lut_gemm_fused(x: torch.Tensor, codebook: torch.Tensor, qw: QuantizedWeight,
                    scale_mode: str = "rms", out_dtype=torch.float32,
-                   blocks=None) -> torch.Tensor:
+                   blocks=None, scale: torch.Tensor | None = None) -> torch.Tensor:
     """Fused quantize + index-GEMM with the per-token and per-channel scales.
 
     Index selection equals ``quantize_activation``'s for the input dtype
     (float32: ``x / s`` form; bfloat16: ``x >= s * b`` form). ``blocks`` as
-    for :func:`lut_gemm`."""
+    for :func:`lut_gemm`. ``scale``: the per-token scale (..., 1), when
+    ``x`` is a slice of the channels it was taken over."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
     m, k = x2d.shape
     a_nbits = int(codebook.shape[0]).bit_length() - 1
     blocks = blocks or _cached_blocks(m, k, qw.shape[1], qw.nbits, a_nbits, True)
-    s = token_scale(x2d, scale_mode)
+    s = token_scale(x2d, scale_mode) if scale is None else scale.reshape(m, 1).float().contiguous()
     book = codebook.float().contiguous()
     y = fused_lut_gemm(x2d, s, qw.packed.contiguous(),
                        boundaries_from_centroids(book).contiguous(), book,

@@ -43,13 +43,14 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import calibration, numerics
 from repro_torch.core import kernel_routing as kr
 from repro_torch.core.codebook import assign_via_boundaries
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.quantize import pack_int4, unpack_int4
-from repro_torch.distributed.sharding import constrain, run_local
+from repro_torch.distributed.sharding import constrain, gather_dim, run_local
 from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
                                             paged_attn_plain, paged_attn_quant_plain)
 
@@ -114,7 +115,15 @@ def norm_apply(scale: torch.Tensor, x: torch.Tensor, kind: str = "rms",
                bias: torch.Tensor | None = None, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm (``kind="rms"``) or LayerNorm (``"layer"``: mean and variance,
     then scale and ``bias``), reduced in float32 whatever x's dtype, as JAX
-    reduces them (``F.layer_norm`` on a bfloat16 input would not)."""
+    reduces them (``F.layer_norm`` on a bfloat16 input would not).
+
+    A DTensor holding partial sums (a row-parallel projection added into the
+    residual) is reduced here, Megatron's all-reduce: DTensor would carry
+    them through the norm and then replicate the next projection's weight
+    to multiply the partial activations whole on every rank."""
+    if isinstance(x, DTensor) and any(pl.is_partial() for pl in x.placements):
+        x = x.redistribute(x.device_mesh, [Replicate() if pl.is_partial() else pl
+                                           for pl in x.placements])
     xf = x.float()
     if kind == "rms":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
@@ -468,6 +477,87 @@ def _paged_attend(cache: dict, q, q_pos, softcap: float, window: int = 0) -> tor
     return o.to(q.dtype)
 
 
+def _head_layout(q: torch.Tensor, h: int, kv: int, cached: bool) -> str:
+    """How a sharded step splits the flat heads of ``q`` (B, S, H * hd)
+    into (KV, G) heads: ``"plain"`` where no mesh dim shards them or its
+    size divides KV (the KV heads are sharded); else, without a cache,
+    ``"expand"`` where it divides H (each KV head repeated for its G query
+    heads, the query heads sharded), otherwise ``"gather"`` (the heads
+    whole on every rank; the ring cache's site then splits the query
+    heads itself). DTensor cannot split a sharded dim into factors the
+    mesh does not divide. A plain tensor is ``"plain"``."""
+    if not isinstance(q, DTensor):
+        return "plain"
+    sizes = [q.device_mesh.size(i) for i, pl in enumerate(q.placements)
+             if isinstance(pl, Shard) and pl.dim == q.ndim - 1]
+    m = math.prod(sizes)
+    if m == 1 or kv % m == 0:
+        return "plain"
+    return "gather" if cached or h % m else "expand"
+
+
+def _ring_attend(cache: dict, q, k, v, positions, window: int, softcap: float, cfg):
+    """Ring write, ring read and attention: (out, cache). On DTensors (a
+    sharded serving step) each rank runs them on its own batch rows and, where
+    the cache shards them, its KV heads: the cache's other model shards
+    (head_dim) are gathered for the step and the rank writes back its own
+    slice; ``slot_pos`` is replicated and every rank writes it alike. With
+    head_dim sharded on one mesh dim whose size divides the query heads,
+    each rank attends its share of the query heads (each with its KV head),
+    out (B, S, H, 1, hd) sharded on them."""
+    if not isinstance(q, DTensor):
+        cache = _cache_write(cache, k, v, positions)
+        ck, cv = _cache_read(cache, q.dtype)
+        return _attn_dispatch(q, ck, cv, positions, cache["slot_pos"], window, True, softcap,
+                              cfg, k_min=cache.get("pad_len")), cache
+    ref = cache["k_idx" if "k_idx" in cache else "k"]
+    mesh = ref.device_mesh
+    work = [pl if isinstance(pl, Shard) and pl.dim in _ROW_AND_HEAD else Replicate()
+            for pl in ref.placements]
+    rep = [Replicate()] * mesh.ndim
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            return t
+        return (t if list(t.placements) == placements
+                else t.redistribute(mesh, placements)).to_local()
+
+    loc = {key: local(t, work if t.ndim == 4 else rep) for key, t in cache.items()}
+    pos = local(positions, rep)
+    loc = _cache_write(loc, local(k, work), local(v, work), pos)
+    coord = mesh.get_coordinate()
+    for key, t in cache.items():
+        if not isinstance(t, DTensor) or t.ndim != 4 or list(t.placements) == work:
+            continue
+        shard = loc[key]
+        for i, (pl, wpl) in enumerate(zip(t.placements, work)):
+            if isinstance(pl, Shard) and pl != wpl:
+                n = shard.shape[pl.dim] // mesh.size(i)
+                shard = shard.narrow(pl.dim, coord[i] * n, n)
+        t.to_local().copy_(shard)
+    ck, cv = _cache_read(loc, q.dtype)
+    ql = local(q, work)
+    b, s, kvh, g, hd = q.shape
+    split = [i for i, (pl, wpl) in enumerate(zip(ref.placements, work))
+             if isinstance(pl, Shard) and pl != wpl]
+    out_pl, shape = work, q.shape
+    if len(split) == 1 and (kvh * g) % mesh.size(split[0]) == 0 and g > 1:
+        n = kvh * g // mesh.size(split[0])
+        h0 = coord[split[0]] * n
+        k0, k1 = h0 // g, (h0 + n - 1) // g + 1
+        heads = lambda t: t[:, :, k0:k1].repeat_interleave(g, dim=2)[:, :, h0 - k0 * g :
+                                                                      h0 - k0 * g + n]
+        ql = ql.reshape(*ql.shape[:2], kvh * g, 1, hd)[:, :, h0 : h0 + n]
+        ck, cv = heads(ck), heads(cv)
+        out_pl, shape = list(work), (b, s, kvh * g, 1, hd)
+        out_pl[split[0]] = Shard(2)
+    o = _attn_dispatch(ql, ck, cv, pos, loc["slot_pos"], window, True, softcap, cfg,
+                       k_min=loc.get("pad_len"))
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(o.contiguous(), mesh, out_pl, run_check=False, shape=shape,
+                              stride=stride), cache
+
+
 def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                     cache: dict | None = None, memory: torch.Tensor | None = None,
                     window: int = 0, layer_tag: str = "attn"):
@@ -497,19 +587,29 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     cross = memory is not None
 
     q = constrain(dense_apply(p.wq, x, f"{layer_tag}.q"), "batch", "seq", "heads_flat")
-    q = q.reshape(b, s, kv, g, hd)
     if cross and cache is not None and "ck" in cache:
         k, v = cache["ck"], cache["cv"]
     else:
         src = memory if cross else x
-        k = dense_apply(p.wk, src, f"{layer_tag}.k").reshape(b, -1, kv, hd)
-        v = dense_apply(p.wv, src, f"{layer_tag}.v").reshape(b, -1, kv, hd)
+        k = dense_apply(p.wk, src, f"{layer_tag}.k")
+        v = dense_apply(p.wv, src, f"{layer_tag}.v")
+    layout = _head_layout(q, h, kv, cached=cache is not None)
+    if layout == "expand":  # one KV head per query head: shard the query heads
+        k, v = (gather_dim(t, -1).reshape(b, -1, kv, hd).repeat_interleave(g, dim=2)
+                for t in (k, v))
+        kv, g = h, 1
+    elif layout == "gather":
+        q, k, v = (gather_dim(gather_dim(t, -1), 2) if t.ndim == 4 else gather_dim(t, -1)
+                   for t in (q, k, v))
+    q = q.reshape(b, s, kv, g, hd)
+    k, v = k.reshape(b, -1, kv, hd), v.reshape(b, -1, kv, hd)
     if not cross and cfg.pos_embed == "rope":
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
-    q = constrain(q, "batch", "seq", "kv_heads", None, None)
-    k = constrain(k, "batch", "seq" if not cross else None, "kv_heads", None)
-    v = constrain(v, "batch", "seq" if not cross else None, "kv_heads", None)
+    if layout == "plain":
+        q = constrain(q, "batch", "seq", "kv_heads", None, None)
+        k = constrain(k, "batch", "seq" if not cross else None, "kv_heads", None)
+        v = constrain(v, "batch", "seq" if not cross else None, "kv_heads", None)
 
     if cross:
         if cache is not None and "ck" not in cache:
@@ -525,10 +625,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
         cache = _paged_write(cache, k, v, q_pos, cache["ctx_lens"])
         o = _paged_attend(cache, q, q_pos, softcap, window)
     elif cache is not None:
-        cache = _cache_write(cache, k, v, positions)
-        ck, cv = _cache_read(cache, x.dtype)
-        o = _attn_dispatch(q, ck, cv, positions, cache["slot_pos"], window, True, softcap,
-                           cfg, k_min=cache.get("pad_len"))
+        o, cache = _ring_attend(cache, q, k, v, positions, window, softcap, cfg)
     else:
         o = run_local(lambda q, k, v: _attn_dispatch(q, k, v, positions, positions, window,
                                                      True, softcap, cfg),
@@ -546,11 +643,22 @@ GATED_ACTS = ("silu", "gelu")  # a fused [gate; up] projection, mlp.wi 2 * d_ff 
 def act_apply(h: torch.Tensor, act_fn: str) -> torch.Tensor:
     """The MLP's hidden activation: gated SiLU or GeLU over the ``[gate; up]``
     halves, squared ReLU (``relu2``) or plain GeLU (``gelu_plain``). GeLU is
-    the tanh approximation, ``jax.nn.gelu``'s default."""
+    the tanh approximation, ``jax.nn.gelu``'s default.
+
+    A DTensor sharded on the hidden dim holds gate columns on some ranks
+    and up columns on others: the halves are gathered, and the product
+    sharded again as h was (one local site; DTensor's split of the sharded
+    dim leaves a strided layout whose backward replicates the projection's
+    weight gradient)."""
     if act_fn in GATED_ACTS:
-        gate, up = torch.chunk(h, 2, dim=-1)
+        whole = gather_dim(h, -1)
+        gate, up = torch.chunk(whole, 2, dim=-1)
         act = F.silu(gate) if act_fn == "silu" else F.gelu(gate, approximate="tanh")
-        return act * up
+        out = act * up
+        if whole is not h:
+            out = out.redistribute(h.device_mesh, [Replicate() if pl.is_partial() else pl
+                                                   for pl in h.placements])
+        return out
     if act_fn == "relu2":
         return torch.square(F.relu(h))
     if act_fn == "gelu_plain":

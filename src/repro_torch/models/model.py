@@ -146,31 +146,38 @@ def _default_codebook(nbits: int, method: str = "kmeans", device="cpu") -> torch
 # ---------------------------------------------------------------------------
 
 def quantize_model(model: Model, params: LanguageModel, spec: QuantSpec,
-                   calib: dict | None = None) -> LanguageModel:
+                   calib: dict | None = None, shapes_only: bool = False) -> LanguageModel:
     """A copy of ``params`` whose projections the spec selects are ``QLinear``
     modules (float tensors are shared with ``params``, not copied).
 
     ``calib``: optional ``{tap_name: (tokens, K) activations}`` from
     ``core.calibration.captured``; with it each projection's activation
     codebook (and the OASIS-S static thresholds) is fit on the activations
-    that feed it, else the structural Gaussian codebook is used."""
+    that feed it, else the structural Gaussian codebook is used.
+    ``shapes_only``: see :func:`quantize_params`."""
     if not isinstance(params, LanguageModel) or params.cfg != model.cfg:
         raise ValueError(f"params are not a parameter tree of {model.cfg.arch_id}")
     # JAX stacks the vlm's blocks whatever scan_layers says
     return quantize_params(params, spec, calib,
-                           scan_layers=model.cfg.scan_layers or model.cfg.family == "vlm")
+                           scan_layers=model.cfg.scan_layers or model.cfg.family == "vlm",
+                           shapes_only=shapes_only)
 
 
 @torch.no_grad()
 def quantize_params(params: nn.Module, spec: QuantSpec, calib: dict | None = None,
-                    scan_layers: bool = True) -> nn.Module:
+                    scan_layers: bool = True, shapes_only: bool = False) -> nn.Module:
     """Replace every spec-selected :class:`Dense` projection by a :class:`QLinear`.
 
     Paths follow the JAX parameter tree: with ``scan_layers`` the stacked
     layers share one path per projection (``blocks/attn/wq``), otherwise
     each layer has its own (``blocks/3/attn/wq``). Layers that share a path
     share its calibrated codebook and thresholds, fit once (JAX fits them
-    once per layer under ``vmap``, on the same pooled activations)."""
+    once per layer under ``vmap``, on the same pooled activations).
+
+    ``shapes_only``: every quantized tensor is ``torch.empty`` of the shape
+    and dtype quantization gives it, nothing fit (``jax.eval_shape`` of
+    quantization: under ``FakeTensorMode`` nothing is allocated, where the
+    K-Means' ``bincount`` cannot run)."""
     out = copy.deepcopy(params, memo={id(t): t for t in params.parameters()})
     fitted: dict = {}
 
@@ -185,7 +192,9 @@ def quantize_params(params: nn.Module, spec: QuantSpec, calib: dict | None = Non
             if name in _QUANT_KEYS and isinstance(child, L.Dense):
                 cfg = spec.resolve(sub)
                 if cfg is not None:
-                    setattr(mod, name, QLinear(_quantize_one(child, cfg, calib, sub, fitted)))
+                    q = (_quantized_shapes(child, cfg) if shapes_only
+                         else _quantize_one(child, cfg, calib, sub, fitted))
+                    setattr(mod, name, QLinear(q))
             else:
                 walk(child, sub)
 
@@ -215,6 +224,26 @@ def _quantize_one(p: L.Dense, cfg: QLinearConfig, calib: dict | None, path: str,
         thr_lo, thr_hi = (t.to(w.device).clone() for t in fitted[key])
     return QLinearParams(qw=qw, act_codebook=book, bias=None if p.b is None else p.b.data,
                          thr_lo=thr_lo, thr_hi=thr_hi, cfg=cfg)
+
+
+def _quantized_shapes(p: L.Dense, cfg: QLinearConfig) -> QLinearParams:
+    """:func:`_quantize_one`'s result as empty tensors of its shapes and
+    dtypes: nibble-packed (K, N / 2) or byte (K, N) uint8 indices, float32
+    codebooks (2^w_bits,) and (2^a_bits,), channel scales (N,), scalar
+    thresholds under static detection."""
+    k, n = p.w.shape
+    empty = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,
+                                                             device=p.w.device)
+    if cfg.w_bits <= 4 and n % 2:
+        raise ValueError("N must be even to nibble-pack along output channels")
+    packed = empty(k, n // 2 if cfg.w_bits <= 4 else n, dtype=torch.uint8)
+    qw = QuantizedWeight(packed=packed, codebook=empty(2**cfg.w_bits), scale=empty(n),
+                         shape=(k, n), nbits=cfg.w_bits)
+    static = cfg.detection in ("static", "static_dense")
+    return QLinearParams(qw=qw, act_codebook=empty(2**cfg.a_bits),
+                         bias=None if p.b is None else p.b.data,
+                         thr_lo=empty() if static else None, thr_hi=empty() if static else None,
+                         cfg=cfg)
 
 
 def _tap_candidates(path: str) -> tuple[str, ...]:
@@ -372,7 +401,12 @@ def _data(t: torch.Tensor) -> torch.Tensor:
 
 def _proj_tree(p: nn.Module, leaf=_data):
     if isinstance(p, QLinear):
-        return p.params
+        q = p.params
+        opt = lambda t: None if t is None else leaf(t)
+        qw = QuantizedWeight(packed=leaf(q.qw.packed), codebook=leaf(q.qw.codebook),
+                             scale=leaf(q.qw.scale), shape=q.qw.shape, nbits=q.qw.nbits)
+        return QLinearParams(qw=qw, act_codebook=leaf(q.act_codebook), bias=opt(q.bias),
+                             thr_lo=opt(q.thr_lo), thr_hi=opt(q.thr_hi), cfg=q.cfg)
     return {"w": leaf(p.w)} if p.b is None else {"w": leaf(p.w), "b": leaf(p.b)}
 
 

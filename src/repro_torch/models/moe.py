@@ -22,14 +22,14 @@ a packed step are routed and take capacity exactly as in JAX.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import run_replicated
+from repro_torch.distributed.sharding import active_rules
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TransformerLM
@@ -133,35 +133,67 @@ def _combine(eo, slot, keep, sw, order, topi, dtype):
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, d) -> (out (B, S, d), Switch aux loss () float32).
-
-    On DTensors (the sharded train step) the routed experts run replicated,
-    the expert weights gathered as JAX gathers them at use: DTensor has no
-    sharding rules for the dispatch's index ops (``searchsorted``,
-    ``index_add_``, gathers at computed indices)."""
-    out, aux = run_replicated(functools.partial(_routed, cfg=cfg), x, p.router.w, p.wi, p.wd)
+    """x (B, S, d) -> (out (B, S, d), Switch aux loss () float32)."""
+    if isinstance(x, DTensor):
+        out, counts, gate_sums = _routed_group_local(x, p.router.w, p.wi, p.wd, cfg)
+    else:
+        out, counts, gate_sums = _routed(x, p.router.w, p.wi, p.wd, cfg,
+                                         dispatch_groups(x.shape[0] * x.shape[1], cfg))
+    # Switch load balancing: E * <fraction of assignments to e> . <mean gate of e> / k
+    t = x.shape[0] * x.shape[1]
+    aux = cfg.n_experts * torch.sum(counts / t * gate_sums / t) / cfg.experts_per_token
     if p.shared is not None:
         sg = torch.sigmoid(L.dense_apply(p.shared_gate, x).float())
         out = out + sg.to(x.dtype) * L.mlp_apply(p.shared, x, cfg.act_fn, "shared_mlp")
     return out, aux
 
 
-def _routed(x, router_w, wi, wd, cfg: ModelConfig):
-    """Routing, dispatch, the expert products and the combine: (out, aux)."""
+def _routed_group_local(x, router_w, wi, wd, cfg: ModelConfig):
+    """:func:`_routed` on DTensors, group-local as JAX's GSPMD shards it:
+    each rank routes, dispatches and combines its own dispatch groups, its
+    rows of x sharded on the ``"dispatch_groups"`` rule's mesh axes (the
+    batch's) and gathered on the others, the router and expert weights
+    gathered whole, as JAX gathers them at use. Their gradients come back
+    as partial sums over those axes, and so do the aux loss's expert counts
+    and gate sums. Where the groups do not split evenly over those axes,
+    every rank runs all of them. DTensor has no sharding rules for the
+    dispatch's index ops (``searchsorted``, ``index_add_``, gathers at
+    computed indices): this is one local site."""
+    mesh = x.device_mesh
+    axes = (active_rules() or {}).get("dispatch_groups")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    dims = [i for i, n in enumerate(mesh.mesh_dim_names) if n in axes and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in dims)
+    g = dispatch_groups(x.shape[0] * x.shape[1], cfg)
+    if g % n or x.shape[0] % n:
+        dims, n = [], 1
+    rows = [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
+    partial = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+    whole = [Replicate()] * mesh.ndim
+    weights = [w.redistribute(mesh, whole).to_local(grad_placements=partial)
+               for w in (router_w, wi, wd)]
+    out, counts, gate_sums = _routed(x.redistribute(mesh, rows).to_local(), *weights, cfg,
+                                     g // n)
+    out = DTensor.from_local(out, mesh, rows, run_check=False, shape=x.shape,
+                             stride=x.stride())
+    counts, gate_sums = (DTensor.from_local(t, mesh, partial, run_check=False)
+                         .redistribute(mesh, whole) for t in (counts, gate_sums))
+    return out, counts, gate_sums
+
+
+def _routed(x, router_w, wi, wd, cfg: ModelConfig, g: int):
+    """Routing, dispatch, the expert products and the combine of x's tokens
+    in ``g`` contiguous dispatch groups: (out, each expert's assignment
+    count (E,), each expert's summed gate (E,))."""
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.n_experts
-    g = dispatch_groups(t, cfg)
     tg = t // g
     cap = moe_capacity(tg, cfg)
     xg = x.reshape(g, tg, d)
     gates, topw, topi = route(xg, router_w, k)
-
-    # Switch load balancing: E * <fraction of assignments to e> . <mean gate of e> / k
     counts = torch.zeros((e,), dtype=torch.float32, device=x.device)
     counts.index_add_(0, topi.reshape(-1), torch.ones((topi.numel(),), device=x.device))
-    frac = counts / (g * tg)
-    aux = e * torch.sum(frac * gates.sum(dim=(0, 1)) / (g * tg)) / k
 
     expert_in, slot, _st, keep, sw, order = _dispatch(xg, topi, topw, e, cap)
     # expert products: (E, G * cap, d) @ (E, d, mult * f), then down
@@ -169,7 +201,7 @@ def _routed(x, router_w, wi, wd, cfg: ModelConfig):
     h = L.act_apply(h, cfg.act_fn)
     eo = torch.bmm(h, wd.to(x.dtype)).reshape(e, g, cap, d).transpose(0, 1)
     out = _combine(eo.reshape(g, e * cap, d), slot, keep, sw, order, topi, x.dtype)
-    return out.reshape(b, s, d), aux
+    return out.reshape(b, s, d), counts, gates.sum(dim=(0, 1))
 
 
 def _ffn_init(cfg: ModelConfig, device):

@@ -48,8 +48,10 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.quantspec import QuantSpec
+from repro_torch.distributed.sharding import gather_dim
 from repro_torch.serving.graph_step import GraphStep
 from repro_torch.serving.paged_cache import zero_state_slot
 from repro_torch.serving.scheduler import Scheduler
@@ -102,17 +104,24 @@ def image_inputs(model, b: int, device) -> dict:
     return {"image_embeds": zero.expand(b, cfg.n_img_tokens, cfg.d_model)}
 
 
+def _no_grad(t: torch.Tensor):
+    """``inference_mode``, or for a sharded step ``no_grad``: DTensor's views
+    cannot be made of inference tensors."""
+    return torch.no_grad() if isinstance(t, DTensor) else torch.inference_mode()
+
+
 def make_prefill_step(model, sc: ServeConfig) -> Callable:
     """prefill(params, caches, batch) -> (first token (B,) int32, caches,
     last-position logits (B, vocab_padded))."""
 
-    @torch.inference_mode()
     def prefill(params, caches, batch: dict):
         tokens = batch["tokens"]
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        out = model.apply(params, batch, positions=positions, caches=caches, last_only=True)
-        next_tok = out.logits[:, -1, : model.cfg.vocab_size].argmax(dim=-1).int()
-        return next_tok, out.caches, out.logits[:, -1]
+        with _no_grad(tokens):
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+            out = model.apply(params, batch, positions=positions, caches=caches,
+                              last_only=True)
+            logits = gather_dim(out.logits[:, -1], -1)
+            return logits[:, : model.cfg.vocab_size].argmax(dim=-1).int(), out.caches, logits
 
     return prefill
 
@@ -124,12 +133,12 @@ def make_serve_step(model, sc: ServeConfig) -> Callable:
     distribution. ``pos`` is a device tensor: the step reads nothing on the
     host, so it can be captured as a CUDA graph."""
 
-    @torch.inference_mode()
     def serve_step(params, caches, tokens, pos):
-        batch = {"tokens": tokens, **image_inputs(model, tokens.shape[0], tokens.device)}
-        out = model.apply(params, batch, positions=pos.reshape(1), caches=caches)
-        logits = out.logits[:, -1, : model.cfg.vocab_size]
-        return logits.argmax(dim=-1).int(), out.caches, logits
+        with _no_grad(tokens):
+            batch = {"tokens": tokens, **image_inputs(model, tokens.shape[0], tokens.device)}
+            out = model.apply(params, batch, positions=pos.reshape(1), caches=caches)
+            logits = gather_dim(out.logits[:, -1], -1)[:, : model.cfg.vocab_size]
+            return logits.argmax(dim=-1).int(), out.caches, logits
 
     return serve_step
 

@@ -41,7 +41,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.checkpointer import CheckpointManager
@@ -89,26 +89,39 @@ def _chunked_ce(hidden, head_w, labels, z_loss: float):
     whole (tokens, vocab) logits: each chunk's logits are recomputed in the
     backward pass (``torch.utils.checkpoint``), JAX's ``jax.checkpoint``
     scan body. The last chunk is padded and its padding masked.
-    Returns (ce, ce + z_loss * mean(lse^2))."""
+    Returns (ce, ce + z_loss * mean(lse^2)).
+
+    On DTensors (a sharded step) the chunks are each rank's: its own rows
+    of the batch (the other shards of hidden gathered), cut into chunks of
+    ``_CE_CHUNK`` tokens of the whole step's, so each rank's share of a
+    chunk is JAX's; each chunk is one DTensor over those rows. A slice of
+    a DTensor's sharded token dim would be gathered whole on every rank."""
     d = hidden.shape[-1]
-    h = hidden.reshape(-1, d)
-    y = labels.reshape(-1)
-    t = h.shape[0]
-    chunk = min(_CE_CHUNK, t)
-    pad = (-t) % chunk
-    valid = torch.nn.functional.pad(torch.ones((t,), dtype=torch.float32, device=h.device),
-                                    (0, pad))
+    t = hidden.shape[0] * hidden.shape[1]
+    wrap = lambda x: x
+    h, y, chunk = hidden.reshape(-1, d), labels.reshape(-1), min(_CE_CHUNK, t)
+    if isinstance(hidden, DTensor):
+        mesh = hidden.device_mesh
+        rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                for pl in hidden.placements]
+        n = math.prod(mesh.size(i) for i, pl in enumerate(rows) if isinstance(pl, Shard))
+        h = hidden.redistribute(mesh, rows).to_local().reshape(-1, d)
+        y = labels.redistribute(mesh, rows).to_local().reshape(-1)
+        chunk = max(1, chunk // n)
+        wrap = lambda x: DTensor.from_local(x, mesh, rows, run_check=False)
+        # the head whole but for its vocab shards, gathered once for all
+        # chunks (FSDP shards its d_model dim: contracting a sharded d would
+        # leave each chunk's logits partial sums over the batch axes)
+        head_w = gather_dim(head_w, 0)
+    pad = (-h.shape[0]) % chunk
+    valid = torch.nn.functional.pad(
+        torch.ones((h.shape[0],), dtype=torch.float32, device=h.device), (0, pad))
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         y = torch.nn.functional.pad(y, (0, pad))
     ce_sum = z_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    # one chunk is the whole of h, unsliced: a slice of a DTensor's sharded
-    # token dim is gathered whole in the backward (``slice_backward``)
-    parts = ([(h, y, valid)] if h.shape[0] == chunk else
-             [(h[i : i + chunk], y[i : i + chunk], valid[i : i + chunk])
-              for i in range(0, h.shape[0], chunk)])
-    for hc, yc, vc in parts:
-        args = (hc, yc, vc, head_w)
+    for i in range(0, h.shape[0], chunk):
+        args = (*(wrap(x[i : i + chunk]) for x in (h, y, valid)), head_w)
         if torch.is_grad_enabled():
             # the recompute runs in the forward's context (the sharding
             # rules), also on the thread that runs the backward
@@ -167,12 +180,11 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
             with torch.enable_grad():
                 n = tc.microbatches
                 if n > 1:
-                    micro = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
-                             for k, v in batch.items()}
                     gsum = [torch.zeros_like(p, dtype=torch.float32) for p in named.values()]
                     lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
                     for i in range(n):
-                        l, g = grads_of(named, params, {k: v[i] for k, v in micro.items()})
+                        mb = {k: _microbatch(v, n, i) for k, v in batch.items()}
+                        l, g = grads_of(named, params, mb)
                         gsum = [a + b for a, b in zip(gsum, g)]
                         lsum = lsum + l.detach()
                     grads = [g / n for g in gsum]
@@ -203,6 +215,19 @@ def make_eval_step(model: Model, tc: TrainConfig) -> Callable:
         return {"loss": loss, **metrics}
 
     return eval_step
+
+
+def _microbatch(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n``: rows ``[i * B / n, (i + 1) * B / n)``, JAX's
+    ``reshape(n, B / n, ...)[i]``. A DTensor batch (sharded on the batch
+    axes) is gathered whole first, then the microbatch's rows are sharded as
+    the batch was: a contiguous block of rows lies on few ranks, and
+    DTensor cannot split a sharded dim that the mesh does not divide."""
+    m = v.shape[0] // n
+    if not isinstance(v, DTensor):
+        return v[i * m : (i + 1) * m]
+    whole = v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim).to_local()
+    return distribute_replicated(whole[i * m : (i + 1) * m], v.device_mesh, v.placements)
 
 
 def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -306,14 +306,15 @@ def test_rules_and_spec_for_equal_jax():
 
 def test_constrain_without_mesh_is_the_identity():
     """With rules active and no mesh, ``constrain`` and ``replicate`` leave a
-    plain tensor as it is (the same object); without rules too."""
+    plain tensor as it is (the same object); without rules too; a local
+    site (``run_local``) just calls its function on it."""
     x = torch.randn(2, 3, 4)
     assert tsh.constrain(x, "batch", "seq", "d_ff") is x
     with tsh.use_rules(tsh.DEFAULT_RULES):
         assert tsh.constrain(x, "batch", "seq", "d_ff") is x
         assert tsh.constrain(x, None, None, None) is x
         assert tsh.replicate(x) is x
-        assert tsh.run_replicated(lambda t: t * 2, x).equal(x * 2)
+        assert tsh.run_local(lambda t: t * 2, x, dims=(0,)).equal(x * 2)
 
 
 def test_cells_equal_jax():

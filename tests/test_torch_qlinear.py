@@ -317,3 +317,41 @@ def test_plain_detection_sorts_on_the_order_key(k):
                               np.take_along_axis(x, want, -1).view(np.uint32))
     assert np.array_equal(torch.sort(xt, dim=-1, descending=True, stable=True).indices[:, :k]
                           .numpy(), hi)
+
+
+def _rows(p: QLinearParams, k0: int, k1: int) -> QLinearParams:
+    """The layer's input channels ``[k0, k1)``: a row-parallel shard, bias
+    on the first shard only."""
+    import dataclasses
+
+    qw = dataclasses.replace(p.qw, packed=p.qw.packed[k0:k1], shape=(k1 - k0, p.qw.shape[1]))
+    return dataclasses.replace(p, qw=qw, bias=p.bias if k0 == 0 else None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("detection", ["none", "dynamic", "static", "static_dense"])
+@pytest.mark.parametrize("kernel,detect_kernel", [("pallas", "pallas"), ("jnp", "pallas"),
+                                                  ("jnp", "jnp")])
+def test_row_windows_sum_to_the_whole_layer(kernel, detect_kernel, detection, dtype):
+    """A row-parallel shard (``k0``): the partial sums over four windows of
+    the input channels add up to the whole layer, each window taking the
+    whole layer's routes (fused GEMM, streaming kernel, plain) with the
+    token scale and the detection over the whole row. Only the order of
+    the float32 sums differs: rtol 1e-5 of the largest output."""
+    cfg = JCfg(detection=detection, outlier_frac=0.05, kernel=kernel,
+               detect_kernel=detect_kernel)
+    p = to_port(_layer(cfg, seed=len(detection) + len(kernel)))
+    _, x = _x(12, 6, 128, dtype)
+    x[:, 100] *= 7  # outliers in the last window too
+    kr.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        whole = qlinear_apply(p, x, out_dtype=torch.float32)
+        once = _counts(kr)
+        kr.reset()
+        parts = [qlinear_apply(_rows(p, k0, k0 + 32), x, k0=k0, out_dtype=torch.float32)
+                 for k0 in range(0, 128, 32)]
+    assert _counts(kr) == tuple({k: 4 * v for k, v in c.items()} for c in once)
+    got = torch.stack(parts).sum(0)
+    scale = whole.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-5, atol=1e-5 * scale)

@@ -1,5 +1,5 @@
-"""The port's sharded train step on 4 gloo ranks (CPU), held against its
-single-process step.
+"""The port's sharded train and serving steps on 4 gloo ranks (CPU), held
+against its single-process steps.
 
 One launch of 4 worker processes (this file run as a script, one PyTorch
 thread each, a free localhost port) on a (2, 2) ("data", "model") mesh
@@ -24,6 +24,16 @@ error, ``(g + e) - deq``, is about a tenth of the gradient, and the
 gradients' float32 differences carry into it whole.
 ``compressed_psum`` exactly equal to a numpy model of the protocol and
 within ``n_ranks * scale`` of the true sum; checkpoint digests equal.
+
+Serving (``SERVE_CASES``: the 2-layer llama, the llama with one KV head,
+whose ring caches shard head_dim, and the 2-layer granite, quantized): one
+prefill and three decode steps with float and int4 caches, and a
+static_dense prefill, give the single process's tokens exactly and logits
+within 1e-5 relative L2. A train step of the one-KV-head llama (its KV
+head repeated for the sharded query heads) within the train step's
+tolerances; and each rank's routed-expert matmul FLOPs, counted by
+``launch.roofline.analyze_step``, are exactly 1/data of the single
+process's.
 """
 
 import copy
@@ -125,6 +135,9 @@ def _worker(rank: int, port: int, out: pathlib.Path) -> None:
     shard_train_state(state, mesh, model_size=2)
     CheckpointManager(str(out / "sharded")).save({"state": train_state_tree(state), "step": 0},
                                                  step=0)
+    res["serve"] = _serving_checks(mesh)
+    res["expanded"] = _expanded_heads_step(mesh)
+    res["moe_flops"] = _moe_expert_flops(mesh)
     res["psum"] = {}
     for n in PSUM_SIZES:
         got = compressed_psum(torch.from_numpy(_psum_input(rank, n)))
@@ -133,6 +146,137 @@ def _worker(rank: int, port: int, out: pathlib.Path) -> None:
     if rank == 0:
         (out / "results.json").write_text(json.dumps(res))
     dist.destroy_process_group()
+
+
+SERVE_CASES = {"llama": ("llama3_2_1b", {}), "llama_kv1": ("llama3_2_1b", {"n_kv_heads": 1}),
+               "granite": ("granite_moe_3b_a800m", {"moe_dispatch_groups": 2})}
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, DECODE_STEPS = 4, 8, 16, 3
+
+
+def _serving_checks(mesh) -> dict:
+    """One prefill and three decode steps of each ``SERVE_CASES`` config,
+    quantized (dynamic detection) with float and int4 KV caches, single
+    process against sharded (params by ``build_param_specs``, caches by
+    ``build_cache_specs``, tokens on "data"); and a static_dense prefill
+    (the prefill cells' detection). Returns per case the tokens and the
+    worst logits' relative L2 of each step."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core import QLinearConfig, QuantSpec
+    from repro_torch.distributed.param_sharding import (build_cache_specs, build_param_specs,
+                                                        cache_tree, distribute_caches,
+                                                        distribute_params)
+    from repro_torch.distributed.sharding import (distribute_replicated, placements_for,
+                                                  use_rules)
+    from repro_torch.models.model import build, quantize_model, tree_from_params
+    from repro_torch.serving.engine import ServeConfig, make_prefill_step, make_serve_step
+
+    out = {}
+    for case, (arch, over) in SERVE_CASES.items():
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        model = build(cfg)
+        params = model.init(0, device="cpu")
+        prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(2))
+        for det in ("dynamic", "static_dense"):
+            qp = quantize_model(model, params, QuantSpec(base=QLinearConfig(detection=det)))
+            for kv_quant in (False, True):
+                if det == "static_dense" and kv_quant:
+                    continue
+                sc = ServeConfig(cache_len=SERVE_CACHE, kv_quant=kv_quant)
+                steps = DECODE_STEPS if det == "dynamic" else 0
+                runs = []
+                for sharded in (False, True):
+                    p = copy.deepcopy(qp)
+                    caches = model.init_caches(SERVE_BATCH, SERVE_CACHE, torch.float32, kv_quant,
+                                               device="cpu")
+                    put = lambda t, spec: t
+                    rules = None
+                    if sharded:
+                        distribute_params(p, build_param_specs(tree_from_params(p), 2), mesh)
+                        cspecs = build_cache_specs(cache_tree(caches, cfg), "data", 2, 2,
+                                                   kv_heads=cfg.n_kv_heads,
+                                                   ssm_state=cfg.ssm_state)
+                        caches = distribute_caches(caches, cfg, cspecs, mesh)
+                        put = lambda t, spec: distribute_replicated(
+                            t, mesh, placements_for(spec, mesh))
+                        rules = RULES
+                    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+                    with use_rules(rules, mesh if sharded else None):
+                        tok, caches, logits = make_prefill_step(model, sc)(
+                            p, caches, {"tokens": put(prompt, ("data", None))})
+                        seq = [(full(tok).tolist(), full(logits))]
+                        serve = make_serve_step(model, sc)
+                        for i in range(steps):
+                            tok, caches, logits = serve(
+                                p, caches, put(full(tok)[:, None], ("data", None)),
+                                put(torch.tensor(SERVE_PROMPT + i, dtype=torch.int32), ()))
+                            seq.append((full(tok).tolist(), full(logits)))
+                    runs.append(seq)
+                (single, sharded) = runs
+                out[f"{case}/{det}/{int(kv_quant)}"] = {
+                    "tokens_single": [t for t, _ in single],
+                    "tokens_sharded": [t for t, _ in sharded],
+                    "logits_rel_l2": [_rel_l2(b[1], a[1]) for a, b in zip(single, sharded)],
+                }
+    return out
+
+
+def _expanded_heads_step(mesh) -> dict:
+    """A train step of the 2-layer llama with one KV head (the model axis
+    of 2 does not divide it: each KV head is repeated for its query heads,
+    which are sharded), sharded against single-process."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import (TrainConfig, init_train_state, make_train_step,
+                                           shard_batch, shard_train_state)
+
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), n_kv_heads=1)
+    model = build(cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 17), dtype=torch.int32,
+                                     generator=torch.Generator().manual_seed(3))}
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), microbatches=2)
+    step = make_train_step(model, tc)
+    state = init_train_state(model, 0, tc, device="cpu")
+    single = copy.deepcopy(state)
+    _, m1 = step(single, batch)
+    shard_train_state(state, mesh, model_size=2)
+    with use_rules(RULES, mesh):
+        _, m2 = step(state, shard_batch(batch, mesh, "data"))
+    ref = dict(single["params"].named_parameters())
+    return {"loss_single": float(m1["loss"]), "loss_sharded": float(m2["loss"].full_tensor()),
+            "param_rel_l2": {k: _rel_l2(p.full_tensor(), ref[k])
+                             for k, p in state["params"].named_parameters()}}
+
+
+def _moe_expert_flops(mesh) -> dict:
+    """Matmul FLOPs of the routed experts (``models/moe.py``'s ``_routed``)
+    in one granite forward of the (4, 16) batch, counted by
+    ``analyze_step``: single-process (what each rank computed when the
+    experts ran replicated) and one rank's share of the sharded forward."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.distributed.param_sharding import (build_param_specs, distribute_params,
+                                                        param_shapes)
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch.roofline import analyze_step
+    from repro_torch.models.model import build
+    from repro_torch.train.trainer import shard_batch
+
+    cfg = dataclasses.replace(get_smoke_config("granite_moe_3b_a800m"), moe_dispatch_groups=4)
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                                     generator=torch.Generator().manual_seed(4))}
+    fwd = lambda p, b: model.apply(p, b).logits
+    expert = lambda a: sum(f for src, f in a["flops_by_source"].items()
+                           if src.endswith("moe.py:_routed"))
+    with torch.no_grad():
+        single = analyze_step(fwd, params, batch)
+        distribute_params(params, build_param_specs(param_shapes(params), 2), mesh)
+        with use_rules(RULES, mesh):
+            sharded = analyze_step(fwd, params, shard_batch(batch, mesh, "data"))
+    return {"single": expert(single), "sharded": expert(sharded), "data": 2}
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +330,41 @@ def test_placements_are_the_param_specs(results, arch):
         assert all(rec["placements_ok"].values()), \
             [k for k, ok in rec["placements_ok"].items() if not ok]
         assert rec["sharded_params"] > 0
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_sharded_serving_steps_equal_single_process(results, case):
+    """The prefill and three decode steps, sharded on the (2, 2) mesh
+    (quantized projections split by columns or by input channels, caches
+    on batch rows and KV heads or head_dim, float and int4), give the
+    single process's tokens at every step, and logits within 1e-5 relative
+    L2: the sharded steps sum the row-parallel projections' partial sums
+    and the factorized products over other splits, in another order. A
+    static_dense prefill (the prefill cells' detection) likewise."""
+    runs = {k: v for k, v in results["serve"].items() if k.startswith(case + "/")}
+    assert len(runs) == 3
+    for key, rec in runs.items():
+        assert rec["tokens_sharded"] == rec["tokens_single"], key
+        assert max(rec["logits_rel_l2"]) < 1e-5, (key, rec["logits_rel_l2"])
+
+
+def test_sharded_step_with_expanded_kv_heads(results):
+    """A train step where the model axis does not divide the KV heads (each
+    repeated for its query heads) equals the single-process one: loss within
+    1e-5 relative, every parameter within 1e-5 relative L2."""
+    rec = results["expanded"]
+    np.testing.assert_allclose(rec["loss_sharded"], rec["loss_single"], rtol=1e-5)
+    worst = max(rec["param_rel_l2"].items(), key=lambda kv: kv[1])
+    assert worst[1] < 1e-5, worst
+
+
+def test_moe_expert_flops_are_split_over_data(results):
+    """Each rank of the sharded granite forward counts 1/data of the routed
+    experts' matmul FLOPs that the single process (and each rank of a
+    replicated dispatch) counts: the dispatch groups are split over "data"."""
+    rec = results["moe_flops"]
+    assert rec["single"] > 0
+    assert rec["sharded"] * rec["data"] == rec["single"]
 
 
 def test_compressed_psum_is_the_protocol(results):
