@@ -25,6 +25,7 @@ from repro_torch.core.quantize import (
     bucketize_mul_form,
     dequantize_activation,
 )
+from repro_torch.serving.telemetry import region
 
 __all__ = [
     "OutlierSet",
@@ -130,8 +131,11 @@ def outlier_residuals_direct(out: OutlierSet, scale: torch.Tensor,
 
 def compensate_gather(residuals: torch.Tensor, out: OutlierSet, qw: QuantizedWeight,
                       compute_dtype=torch.float32) -> torch.Tensor:
-    """``Y'[m, n] = sum_t r[m, t] * W~[ch[m, t], n]`` by gathering weight rows."""
+    """``Y'[m, n] = sum_t r[m, t] * W~[ch[m, t], n]`` by gathering weight rows
+    (regions ``qlinear.comp_dequant``, then ``qlinear.comp_matmul``)."""
+    region("qlinear.comp_dequant")
     w_rows = qw.dequantize_rows(out.channels.long()).to(compute_dtype)  # (..., T, N)
+    region("qlinear.comp_matmul")
     r = residuals.to(compute_dtype)
     return (r.unsqueeze(-2) @ w_rows).squeeze(-2)
 
@@ -139,7 +143,9 @@ def compensate_gather(residuals: torch.Tensor, out: OutlierSet, qw: QuantizedWei
 def compensate_scatter(residuals: torch.Tensor, out: OutlierSet, qw: QuantizedWeight,
                        compute_dtype=torch.float32) -> torch.Tensor:
     """Scatter-add residuals into a dense (..., K) matrix, one dense product
-    with the dequantized weight (the prefill-sized route)."""
+    with the dequantized weight (the prefill-sized route). The scatter
+    counts to the caller's region (``qlinear.residual``), then
+    ``qlinear.comp_dequant`` and ``qlinear.comp_matmul``."""
     k_channels = qw.shape[0]
     lead = residuals.shape[:-1]
     r2 = residuals.reshape(-1, residuals.shape[-1]).to(compute_dtype)
@@ -147,7 +153,9 @@ def compensate_scatter(residuals: torch.Tensor, out: OutlierSet, qw: QuantizedWe
     rows = torch.arange(r2.shape[0], device=r2.device)[:, None].expand_as(ch)
     r_dense = torch.zeros((r2.shape[0], k_channels), dtype=compute_dtype, device=r2.device)
     r_dense.index_put_((rows, ch), r2, accumulate=True)
+    region("qlinear.comp_dequant")
     w = qw.dequantize_rows().to(compute_dtype)
+    region("qlinear.comp_matmul")
     return (r_dense @ w).reshape(*lead, w.shape[1])
 
 

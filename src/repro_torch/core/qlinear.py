@@ -21,6 +21,14 @@ bucketize stops at A4; dynamic detection still launches the detection-only
 top-k kernel), and a kernel detection route under static detection scores
 against the thresholds in plain code. No kernel exists for either in the
 JAX package.
+
+Region boundaries (``serving.telemetry.region``, mapped only when a fenced
+packed step is captured): ``qlinear.main`` (the fused LUT-GEMM, or quantize plus the plain
+LUT-GEMM), ``qlinear.detect`` (the float cast and the top-k, or the
+streaming kernel), ``qlinear.residual`` (``r = x - q(x)`` at the outliers,
+and the scatter route's dense residual matrix), ``qlinear.comp_dequant`` and
+``qlinear.comp_matmul`` (``core/outlier.py``; the product and its add into
+``y``); the bias and the output cast count to ``other``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import repro_torch.core.numerics as nx
 import repro_torch.core.outlier as ol
 import repro_torch.core.quantize as qz
 from repro_torch.core.lut_gemm import lut_gemm as _lut_gemm_plain
+from repro_torch.serving.telemetry import region
 
 __all__ = ["QLinearConfig", "QLinearParams", "QLinear", "qlinear_apply", "quantize_linear",
            "with_kernel_route", "with_detect_route"]
@@ -223,11 +232,11 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
             else:
                 kr.record_detect_dispatch(tier, "jnp")
 
+    # ---- main branch: LUT-GEMM over all activations ------------------------
+    region("qlinear.main")
     # a window's indices take the whole row's scale
     scale = qz.token_scale(x, cfg.scale_mode) if window else None
     xw = x[..., k0:k1] if window else x
-
-    # ---- main branch: LUT-GEMM over all activations ------------------------
     qa = None
     outs = None
     if route == "pallas":
@@ -240,8 +249,10 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
             from repro_torch.kernels import ops as kops
 
             # the streaming kernel: indices and outlier set from one read
+            region("qlinear.detect")
             qa, outs = kops.quantize_outlier_streaming(x, p.act_codebook, k_out,
                                                        cfg.scale_mode)
+            region("qlinear.main")
             if window:
                 qa = dataclasses.replace(qa, idx=qa.idx[..., k0:k1])
         else:
@@ -251,16 +262,22 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
 
     # ---- outlier branch ----------------------------------------------------
     if cfg.detection == "static_dense" and cfg.outlier_frac > 0:
+        region("qlinear.residual")
         if qa is None:
             qa = qz.quantize_activation(xw, p.act_codebook, cfg.scale_mode, scale=scale)
         deq = qz.dequantize_activation(qa, dtype=cfg.compute_dtype)
         xf = xw.to(cfg.compute_dtype)
+        region("qlinear.detect")
         mask = (xf > p.thr_hi) | (xf < p.thr_lo)
+        region("qlinear.residual")
         r = torch.where(mask, xf - deq, torch.zeros_like(xf))
+        region("qlinear.comp_dequant")
         w = p.qw.dequantize_rows().to(cfg.compute_dtype)
+        region("qlinear.comp_matmul")
         y = y + r @ w
     elif cfg.detection != "none" and cfg.outlier_frac > 0:
         if outs is None:  # else the streaming kernel detected them
+            region("qlinear.detect")
             if cfg.detection == "dynamic" and detect_route == "pallas":
                 from repro_torch.kernels import ops as kops
 
@@ -273,6 +290,7 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
             here = ((outs.channels >= k0) & (outs.channels < k1)).to(outs.mask.dtype)
             outs = ol.OutlierSet(values=outs.values, mask=outs.mask * here,
                                  channels=torch.clamp(outs.channels - k0, 0, k1 - k0 - 1))
+        region("qlinear.residual")
         if qa is None:
             r = ol.outlier_residuals_direct(outs, qz.token_scale(x, cfg.scale_mode),
                                             p.act_codebook, mul_form=mul_form)
@@ -285,6 +303,7 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
         comp = (ol.compensate_gather(r, outs, p.qw, cfg.compute_dtype) if mode == "gather"
                 else ol.compensate_scatter(r, outs, p.qw, cfg.compute_dtype))
         y = y + comp
+    region("other")
 
     if cfg.probe and nx.collecting() and not window:
         # quality probes (the quality telemetry level only): reductions on

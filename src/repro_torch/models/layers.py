@@ -53,6 +53,7 @@ from repro_torch.core.quantize import pack_int4, unpack_int4
 from repro_torch.distributed.sharding import constrain, gather_dim, run_local
 from repro_torch.kernels.paged_attn import (paged_attn_bf16, paged_attn_int4,
                                             paged_attn_plain, paged_attn_quant_plain)
+from repro_torch.serving.telemetry import region
 
 __all__ = [
     "Dense",
@@ -579,6 +580,9 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
     cross caches start holding zeros, attend zeros at prefill as at decode.
     A cache dict without them receives this call's keys and values in
     bfloat16.
+
+    Between the projections lies the region ``attn.core``
+    (``serving.telemetry.region``): RoPE, the KV write and the attention.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -593,6 +597,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
         src = memory if cross else x
         k = dense_apply(p.wk, src, f"{layer_tag}.k")
         v = dense_apply(p.wv, src, f"{layer_tag}.v")
+    region("attn.core")
     layout = _head_layout(q, h, kv, cached=cache is not None)
     if layout == "expand":  # one KV head per query head: shard the query heads
         k, v = (gather_dim(t, -1).reshape(b, -1, kv, hd).repeat_interleave(g, dim=2)
@@ -630,6 +635,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, positions: torch.Tens
         o = run_local(lambda q, k, v: _attn_dispatch(q, k, v, positions, positions, window,
                                                      True, softcap, cfg),
                       q, k, v, dims=_ROW_AND_HEAD)
+    region("other")
     o = constrain(o.reshape(b, s, h * hd), "batch", "seq", "heads_flat")
     out = dense_apply(p.wo, o, f"{layer_tag}.o")
     if p.gate is not None:  # gated cross-attention

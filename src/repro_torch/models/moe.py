@@ -33,6 +33,7 @@ from repro_torch.distributed.sharding import active_rules
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.serving.telemetry import region
 
 __all__ = ["MoE", "moe_capacity", "dispatch_groups", "route", "moe_apply", "init", "apply",
            "init_caches", "cache_policies"]
@@ -184,23 +185,31 @@ def _routed_group_local(x, router_w, wi, wd, cfg: ModelConfig):
 def _routed(x, router_w, wi, wd, cfg: ModelConfig, g: int):
     """Routing, dispatch, the expert products and the combine of x's tokens
     in ``g`` contiguous dispatch groups: (out, each expert's assignment
-    count (E,), each expert's summed gate (E,))."""
+    count (E,), each expert's summed gate (E,)). Regions
+    (``serving.telemetry.region``): ``moe.route`` (the router and the
+    assignment counts), ``moe.dispatch``, ``moe.experts`` (both products and
+    the activation), ``moe.combine``."""
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.n_experts
     tg = t // g
     cap = moe_capacity(tg, cfg)
     xg = x.reshape(g, tg, d)
+    region("moe.route")
     gates, topw, topi = route(xg, router_w, k)
     counts = torch.zeros((e,), dtype=torch.float32, device=x.device)
     counts.index_add_(0, topi.reshape(-1), torch.ones((topi.numel(),), device=x.device))
 
+    region("moe.dispatch")
     expert_in, slot, _st, keep, sw, order = _dispatch(xg, topi, topw, e, cap)
     # expert products: (E, G * cap, d) @ (E, d, mult * f), then down
+    region("moe.experts")
     h = torch.bmm(expert_in.transpose(0, 1).reshape(e, g * cap, d), wi.to(x.dtype))
     h = L.act_apply(h, cfg.act_fn)
     eo = torch.bmm(h, wd.to(x.dtype)).reshape(e, g, cap, d).transpose(0, 1)
+    region("moe.combine")
     out = _combine(eo.reshape(g, e * cap, d), slot, keep, sw, order, topi, x.dtype)
+    region("other")
     return out.reshape(b, s, d), counts, gates.sum(dim=(0, 1))
 
 

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain, gather_dim
 from repro_torch.models import layers as L
+from repro_torch.serving.telemetry import region
 
 __all__ = ["Block", "TransformerLM", "check_ported", "init", "apply", "init_caches",
            "cache_policies", "embed_in", "logits_out"]
@@ -160,17 +161,21 @@ def embed_in(lm: nn.Module, tokens: torch.Tensor, positions: torch.Tensor) -> to
 def logits_out(lm: nn.Module, x: torch.Tensor, last_only: bool, hidden_only: bool):
     """The final norm, then (unless ``hidden_only``) the float32 logits
     through the tied embedding or the head; ``last_only`` keeps the last
-    position."""
+    position. Both are the region ``head`` (``serving.telemetry.region``)."""
     if last_only:
         x = x[:, -1:]
+    region("head")
     x = L.norm_apply(lm.norm_f, x, lm.cfg.norm, lm.norm_f_bias)
     if hidden_only:
+        region("other")
         return x
     if lm.cfg.tie_embeddings:
         logits = x @ lm.embed.to(x.dtype).T
     else:
         logits = L.dense_apply(lm.head, x)
-    return constrain(logits.float(), "batch", "seq", "vocab")
+    logits = constrain(logits.float(), "batch", "seq", "vocab")
+    region("other")
+    return logits
 
 
 def _norm_init(cfg: ModelConfig, dtype, device) -> tuple[torch.Tensor, torch.Tensor | None]:

@@ -29,6 +29,9 @@ Capture, in order:
 2. the capture itself, which runs the Python but no kernel;
 3. the first replay, which does the first step's work.
 
+With ``regions`` step 2 records a marker kernel at every region boundary
+the model code marks (``telemetry.RegionMarks``); the warm-up records none.
+
 A capture that fails raises: nothing falls back to the eager step. The
 launch and dispatch counters (``kernels/build.py``,
 ``core/kernel_routing.py``) count Python calls, so :class:`StepCounts` takes
@@ -48,6 +51,7 @@ import torch
 from repro_torch.core import kernel_routing as kr
 from repro_torch.kernels import build
 from repro_torch.serving.paged_cache import restore_state, snapshot_state
+from repro_torch.serving.telemetry import RegionMarks
 
 __all__ = ["GraphStep", "StepCounts", "StepInputs", "packed_idle", "pool_ptrs"]
 
@@ -120,14 +124,16 @@ class GraphStep:
     graph over the static device tensors ``inputs``; calling it replays the
     graph and returns ``out``, static tensors that the next replay
     overwrites. ``idle`` holds the warm-up's inputs (see the module
-    docstring), shaped as ``inputs``.
+    docstring), shaped as ``inputs``. With ``regions`` the capture marks
+    the region boundaries in the graph (``self.regions``, a
+    ``RegionMarks``).
 
     ``pools`` must stay the same tensors for the graph's life: they are
     written in place (copy-on-write and preemption too), and each call
     checks their addresses."""
 
     def __init__(self, fn, params, pools: list[dict], inputs: tuple[torch.Tensor, ...],
-                 idle: tuple[torch.Tensor, ...]):
+                 idle: tuple[torch.Tensor, ...], regions: bool = False):
         self.device = inputs[0].device
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, got {self.device}")
@@ -140,6 +146,7 @@ class GraphStep:
         self.out = None
         self.counts = StepCounts()
         self.capture_s: float | None = None
+        self.regions = RegionMarks() if regions else None
 
     def __call__(self, pools: list[dict]):
         self.capture(pools)
@@ -164,7 +171,8 @@ class GraphStep:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         restore_state(pools, states)  # the warm-up leaves no state behind
         graph = torch.cuda.CUDAGraph()
-        with self.counts.record(), _no_gc(), torch.cuda.graph(graph, stream=self.stream):
+        marked = self.regions.recording() if self.regions else contextlib.nullcontext()
+        with self.counts.record(), _no_gc(), torch.cuda.graph(graph, stream=self.stream), marked:
             out_pools, self.out = self.fn(self.params, pools, *self.inputs)
         if pool_ptrs(out_pools) != self.ptrs:
             raise RuntimeError("the captured step returned other pool tensors than it was given")

@@ -42,7 +42,12 @@ Telemetry (``ServeConfig.telemetry``, ``serving/telemetry.py``): the serving
 counters are registry counters under JAX's ``serving_*`` names, ``stats``
 is rebuilt from them, and each request's lifecycle and each step's record
 go to the same object. None of it reads the device: cells are counted on
-the host's position array. At the ``quality`` level 1 in
+the host's position array. Each step record lists ``step``'s host phases
+(``admit``, ``plan``, ``pack``, ``replay``, ``sample``, ``commit``) on the
+profiler's clock; under ``fence`` on the card the packed step is captured
+with a marker kernel at each region boundary the model code marks, and
+each record of a replay carries the regions in marker order
+(``region_marks``). At the ``quality`` level 1 in
 ``quality_sample_every`` steps (step 0 always) runs the probed step
 (``speculative.make_probed_packed_fn``), on the card a second captured
 graph; its probe dict comes to the host in one copy for
@@ -306,7 +311,8 @@ class Scheduler:
         self._in = StepInputs(((slots, max_blk), (rows,), (rows, self.seg_width), (rows,),
                                (rows, self.seg_width)), self.device)
         self.graph = (GraphStep(self._packed_fn, params, self.pools, self._in.dev,
-                                packed_idle(self._in.dev)) if graph else None)
+                                packed_idle(self._in.dev), regions=tel.fence)
+                      if graph else None)
         self.last_logits: torch.Tensor | None = None  # (rows, S, vocab) of the last step
         # ---- quality level: the numerics probes ------------------------------
         # every other level runs the packed step alone; quality runs the
@@ -399,11 +405,12 @@ class Scheduler:
     def step(self, results: dict[int, list[int]]) -> bool:
         """Refill slots, retire finished requests, run one packed step.
         Returns True while work remains."""
+        t_admit = self.telemetry.stamp()
         admitted = self._refill_slots()
         for r in [r for r in self._running if r.done]:
             self._finish(r, results)
         if self._running:
-            self._packed_once(results)
+            self._packed_once(results, [("admit", t_admit, self.telemetry.stamp())])
             return True
         if self._queue and not admitted:
             r = self._queue[0]
@@ -473,12 +480,14 @@ class Scheduler:
             return 0
         return max(0, min(self.spec.k, r.max_new_tokens - len(r.generated) - 1))
 
-    def _packed_once(self, results: dict) -> None:
+    def _packed_once(self, results: dict, phases: list) -> None:
         """Assemble and run one grid: decode or verify segments first, then
-        prefill segments FCFS over the remaining rows."""
+        prefill segments FCFS over the remaining rows. ``phases`` holds the
+        step's host phases so far; each phase after it is appended."""
         S = self.seg_width
         tel = self.telemetry
         t_host0 = tel.now()
+        p0 = tel.stamp()
         blocks_alloc0 = self.allocator.blocks_allocated
         blocks_freed0 = self.allocator.blocks_freed
         cow0 = self._c["cow_copies"].value
@@ -502,6 +511,7 @@ class Scheduler:
                     rows_left -= -(-n // S)
             if not self._has_paged or self._cow_pass(decoders, segments):
                 break
+        phases.append(("plan", p0, tel.stamp()))
 
         # drafts after the plan is stable: no proposal is spent on a request
         # that growth or copy-on-write preempted; the draft pool is private
@@ -515,6 +525,7 @@ class Scheduler:
             self._h_draft_round.observe(draft_dt)
             self._c_draft_time.add(draft_dt)
 
+        p0 = tel.stamp()
         bt, slot_ids, pos, ctx, tok = self._in.arrays()
         bt.fill(-1)
         slot_ids.fill(0)
@@ -549,9 +560,13 @@ class Scheduler:
         probe_now = (self._quality is not None
                      and self._step_i % tel.cfg.quality_sample_every == 0)
         t_dispatch = tel.now()
+        p1 = tel.stamp()
+        phases.append(("pack", p0, p1))
         logits, extras, flat_probes = self._run_step(probe_now)
         t_done = tel.now()
+        phases.append(("replay", p1, tel.stamp()))
         self._c_target_time.add(t_done - t_dispatch)
+        p0 = tel.stamp()
         probes = None if flat_probes is None else self._unpack_probes(flat_probes)
         finishing = [(r, last_cell[r.rid]) for r, start, n in segments
                      if start + n >= len(r.context) and r.next_token is None]
@@ -562,6 +577,8 @@ class Scheduler:
         else:
             sampled = [(r, verify_cells[r.rid][0]) for r in decoders] + finishing
             picks = dict(zip((r.rid for r, _ in sampled), self._sample(logits, sampled)))
+        p1 = tel.stamp()
+        phases.append(("sample", p0, p1))
 
         n_cells = int((pos >= 0).sum())  # from the host's array: no device read
         self._count("packed_steps")
@@ -645,6 +662,9 @@ class Scheduler:
         self._step_i += 1
         if tel.enabled:
             dec_rows = len(decoders) * self._dec_rows
+            phases.append(("commit", p1, tel.stamp()))
+            marks = (self.graph.regions.names
+                     if tel.fence and not probe_now and self.graph is not None else ())
             tel.step_record(
                 host_s=(t_dispatch - t_host0 - draft_dt) + (tel.now() - t_done),
                 device_s=t_done - t_dispatch, cells=n_cells, budget=self.token_budget,
@@ -653,7 +673,9 @@ class Scheduler:
                 prefill_rows=sum(-(-n // S) for _, _, n in segments),
                 blocks_allocated=self.allocator.blocks_allocated - blocks_alloc0,
                 blocks_freed=self.allocator.blocks_freed - blocks_freed0,
-                blocks_copied=self._c["cow_copies"].value - cow0)
+                blocks_copied=self._c["cow_copies"].value - cow0,
+                phases=phases,
+                region_marks=marks or None)
 
     def _run_step(self, probe: bool = False):
         """Copy the packed inputs to the device and run the step, or with

@@ -14,10 +14,13 @@ One :class:`Telemetry` object per engine owns four things:
    at the default ``metrics`` level; per-request event lists are kept only
    under ``trace``.
 3. a **bounded ring buffer of per-packed-step records** -- budget
-   utilization, rows by kind, blocks allocated / freed / copied, and the
-   host-prep vs device time split. Device time is the wall time of the
-   step's dispatch (a graph replay returns at once); ``fence=True``
-   synchronizes on the logits' stream so the split is exact.
+   utilization, rows by kind, blocks allocated / freed / copied, the
+   host-prep vs device time split and the step's host phases. Without
+   ``fence`` device time is the wall time of the step's dispatch (a graph
+   replay returns at once, so it holds little of the device's work) and
+   the sampling copy's wait for the replay lands in host time;
+   ``fence=True`` synchronizes on the logits' stream, so the split is
+   exact, and marks the regions of the captured packed step (below).
 4. **exporters** -- :meth:`Telemetry.snapshot` (a JSON-able dict of every
    metric plus derived percentiles), :meth:`Telemetry.export_chrome_trace`
    (Chrome / Perfetto trace-event JSON: packed steps and draft dispatches on
@@ -25,15 +28,43 @@ One :class:`Telemetry` object per engine owns four things:
    load it at ``ui.perfetto.dev``) and :meth:`Telemetry.expfmt` (Prometheus
    text).
 
+**Host phases.** Each step record's ``phases`` lists ``(name, t0_ns,
+t1_ns)`` of ``Scheduler.step``'s host phases in order -- ``admit`` (admission
+and finishing), ``plan`` (growth and copy-on-write), ``pack`` (the host
+arrays), ``replay`` (the upload and the replay, and the wait under
+``fence``), ``sample`` (the draw and its copy to the host), ``commit``
+(bookkeeping up to the record; a draft's proposal, under speculation,
+lies between ``plan`` and ``pack``, in no phase) -- stamped with
+``time.time_ns``, the clock ``torch.profiler`` stamps its events with on
+Linux, so a profiler trace's device idle can be attributed to them. ``host_s`` and ``device_s`` keep
+their own ``perf_counter`` arithmetic; ``host_s`` starts at ``plan``.
+
+**Regions.** Model code marks flat, non-nested region boundaries with
+:func:`region`: ``qlinear.main``, ``qlinear.detect``, ``qlinear.residual``,
+``qlinear.comp_dequant``, ``qlinear.comp_matmul``, ``attn.core``,
+``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``, ``head``
+and ``other`` (norms, residual adds, the embedding). When the packed step
+is captured under ``fence=True`` on CUDA, each boundary records a marker
+kernel into the graph (:class:`RegionMarks`), and every record of a replay
+carries the regions' names in marker order as ``region_marks``: in a
+profiler trace of the replay, the ops between the k-th marker and the next
+are the k-th region's, so a fenced step's record, with a profiler trace,
+is exact about where the device time went. Everywhere else -- without
+``fence``, eagerly, on the CPU, in the capture's warm-up run -- a boundary
+is a Python no-op that issues no aten op, records nothing and reads no
+clock, and the unfenced graph is the one captured without boundaries. The
+exporters leave ``phases`` and ``region_marks`` out.
+
 Levels (``ServeConfig.telemetry``): ``"off"`` is a null object -- every method
 is a no-op, with no clock read and no profiler range. ``"metrics"`` (the
 default) keeps counters, gauges, histograms and the step ring. ``"trace"``
 adds per-request event timelines and named spans. ``"quality"`` is trace plus
 the quantization-numerics probes of ``core/numerics``: 1 in
 ``quality_sample_every`` packed steps runs the probed step, a second
-captured graph on the card. Telemetry never wraps captured code: the spans
-(``torch.profiler.record_function``) wrap graph replays and eager dispatches,
-so the packed step runs the same aten ops at off, metrics and trace.
+captured graph on the card. The spans (``torch.profiler.record_function``)
+never wrap captured code, only graph replays and eager dispatches, and the
+region boundaries issue no aten op, so the packed step runs the same aten
+ops at off, metrics and trace, fenced or not.
 
 :class:`StreamingStats` is the one windowed streaming-stats implementation:
 the step records use it, and
@@ -44,6 +75,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import contextvars
 import dataclasses
 import json
 import math
@@ -57,7 +89,7 @@ import torch
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "StreamingStats",
     "TelemetryConfig", "Telemetry", "NullTelemetry", "make_telemetry",
-    "log_buckets", "linear_buckets",
+    "log_buckets", "linear_buckets", "region", "RegionMarks",
 ]
 
 
@@ -320,6 +352,53 @@ class StreamingStats:
 
 
 # ---------------------------------------------------------------------------
+# regions inside a captured step
+# ---------------------------------------------------------------------------
+
+_REGIONS: contextvars.ContextVar["RegionMarks | None"] = contextvars.ContextVar(
+    "repro_torch_regions", default=None)
+
+
+def region(name: str) -> None:
+    """A region boundary: the device ops launched from here to the next
+    boundary belong to ``name``. Acts only while a :class:`RegionMarks`
+    records a capture; otherwise it does nothing."""
+    recorder = _REGIONS.get()
+    if recorder is not None:
+        recorder.mark(name)
+
+
+class RegionMarks:
+    """The region boundaries of one captured step. Each boundary records a
+    marker kernel into the graph (a one-cycle ``torch.cuda._sleep``, which
+    ``torch.profiler`` names after its ``spin_kernel``) and appends the
+    region's name to ``names``: in a profiled replay the device ops between
+    the k-th marker and the next belong to ``names[k]``, by device order
+    alone. The step's first op is a marker (``other``) and so is its last."""
+
+    def __init__(self):
+        self.names: tuple[str, ...] = ()
+        self._names: list[str] = []
+
+    def mark(self, name: str) -> None:
+        torch.cuda._sleep(1)
+        self._names.append(name)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record the body's boundaries (call it inside the capture)."""
+        self._names = []
+        self.mark("other")
+        token = _REGIONS.set(self)
+        try:
+            yield self
+        finally:
+            _REGIONS.reset(token)
+            self.mark("other")
+            self.names = tuple(self._names)
+
+
+# ---------------------------------------------------------------------------
 # telemetry object
 # ---------------------------------------------------------------------------
 
@@ -334,7 +413,12 @@ class TelemetryConfig:
     Perfetto export), or ``"quality"`` (trace + the quantization-numerics
     probes of ``core/numerics``, which add a second captured step).
     ``fence=True`` blocks on the packed step's output so the host/device
-    time split is exact (adds a sync, never a dispatch). ``step_ring``
+    time split is exact (adds a sync, never a dispatch), and on CUDA
+    captures the packed step with a marker kernel at each region boundary,
+    whose regions each step record carries as ``region_marks``: a fenced
+    step's record is exact about where the device time went, given a
+    profiler trace of the replay (see the module docstring). Without it
+    the captured graph holds no marker. ``step_ring``
     bounds the per-step record buffer; ``max_requests`` bounds completed
     request timelines kept under trace.
 
@@ -400,11 +484,13 @@ class _RequestTrace:
 class Telemetry:
     """Live telemetry for one serving engine (see module docstring)."""
 
-    def __init__(self, cfg: TelemetryConfig | None = None, clock=time.perf_counter):
+    def __init__(self, cfg: TelemetryConfig | None = None, clock=time.perf_counter,
+                 phase_clock=time.time_ns):
         self.cfg = cfg or TelemetryConfig()
         if self.cfg.level == "off":
             raise ValueError("level=off is NullTelemetry; use make_telemetry()")
         self._clock = clock
+        self._phase_clock = phase_clock
         self.registry = MetricsRegistry()
         self.step_times = StreamingStats(window=min(self.cfg.step_ring, 256))
         self._t0 = clock()
@@ -435,6 +521,10 @@ class Telemetry:
 
     def now(self) -> float:
         return self._clock()
+
+    def stamp(self) -> int:
+        """A host-phase boundary in ns on the profiler's clock."""
+        return self._phase_clock()
 
     def counter(self, name: str, help: str = "") -> Counter:
         return self.registry.counter(name, help)
@@ -590,14 +680,18 @@ class Telemetry:
     def step_record(self, *, host_s: float, device_s: float, cells: int,
                     budget: int, decode_rows: int = 0, verify_rows: int = 0,
                     prefill_rows: int = 0, blocks_allocated: int = 0,
-                    blocks_freed: int = 0, blocks_copied: int = 0) -> None:
-        """One packed step's accounting -> histograms + the bounded ring."""
+                    blocks_freed: int = 0, blocks_copied: int = 0,
+                    phases: list | None = None,
+                    region_marks: tuple | None = None) -> None:
+        """One packed step's accounting -> histograms + the bounded ring.
+        ``phases`` ([(name, t0_ns, t1_ns)]) and ``region_marks`` (region
+        names in marker order) go into the record only when given."""
         util = cells / budget if budget else 0.0
         self.hist_step_host.observe(host_s)
         self.hist_step_device.observe(device_s)
         self.hist_step_util.observe(util)
         self.step_times.record(host_s + device_s)
-        self.steps.append({
+        rec = {
             "t": self.now() - self._t0,
             "host_s": host_s, "device_s": device_s,
             "cells": cells, "budget": budget, "util": util,
@@ -605,7 +699,11 @@ class Telemetry:
             "prefill_rows": prefill_rows,
             "blocks_allocated": blocks_allocated,
             "blocks_freed": blocks_freed, "blocks_copied": blocks_copied,
-        })
+        }
+        for key, v in (("phases", phases), ("region_marks", region_marks)):
+            if v is not None:
+                rec[key] = v
+        self.steps.append(rec)
 
     # -------------------------------------------------------------- exporters
     def snapshot(self) -> dict:
@@ -661,7 +759,7 @@ class Telemetry:
             t1 = s["t"] * us  # records stamp completion time
             ev.append({"ph": "X", "pid": 0, "tid": 0, "name": "packed_step",
                        "ts": t1 - dur, "dur": dur,
-                       "args": {k: v for k, v in s.items() if k != "t"}})
+                       "args": {k: v for k, v in s.items() if k not in _UNEXPORTED}})
         for name, t_start, dur_s in self.spans:
             ev.append({"ph": "X", "pid": 0, "tid": 1, "name": name,
                        "ts": (t_start - self._t0) * us, "dur": dur_s * us})
@@ -728,6 +826,9 @@ class Telemetry:
         return "\n".join(out) + ("\n" if out else "")
 
 
+_UNEXPORTED = ("t", "phases", "region_marks")  # step-record keys
+
+
 def _promname(name: str) -> str:
     return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
 
@@ -771,6 +872,9 @@ class NullTelemetry:
 
     def now(self) -> float:
         return 0.0
+
+    def stamp(self) -> int:
+        return 0
 
     def quality_counter(self, name, value):
         pass

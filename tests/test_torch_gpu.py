@@ -685,6 +685,64 @@ def test_graph_pools_keep_their_addresses(dev):
         sched.step({})
 
 
+def test_fenced_graph_step_marks_its_regions(dev):
+    """Under ``fence`` the packed step is captured with a marker kernel at
+    each region boundary. Logits, pools and counts equal the unfenced
+    graph's bit for bit; every fenced record carries the regions in marker
+    order and the host phases in order; a profiled replay runs one marker
+    per region, first and last, and the LUT-GEMM, top-k and attention
+    kernels fall in their regions. Unfenced records carry no marks."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.telemetry import TelemetryConfig
+
+    model, qp, sc = _route_model(dev, "fused")
+    plain = _run_steps(model, qp, sc, graph=True)
+    fenced = _run_steps(model, qp, dataclasses.replace(sc, telemetry=TelemetryConfig(fence=True)),
+                        graph=True)
+    for a, b in zip(plain[1], fenced[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(plain[2], fenced[2]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert plain[3] == fenced[3]  # the same launches and dispatches
+    assert not any("region_marks" in rec for rec in plain[0].telemetry.steps)
+    sched = fenced[0]
+    marks = sched.graph.regions.names
+    recs = list(sched.telemetry.steps)
+    assert len(recs) == 6 and all(rec["region_marks"] is marks for rec in recs)
+    for rec in recs:
+        assert [p[0] for p in rec["phases"]] == ["admit", "plan", "pack", "replay", "sample",
+                                                 "commit"]
+    assert set(marks) == {"other", "qlinear.main", "qlinear.detect", "qlinear.residual",
+                          "qlinear.comp_dequant", "qlinear.comp_matmul", "attn.core", "head"}
+    sched.submit(list(range(3, 20)), 4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sched.step({})
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [n for _, n in sorted((e.start_ns(), e.name())
+                                for e in prof.profiler.kineto_results.events()
+                                if e.device_type() == cuda and not e.is_user_annotation()
+                                and e.duration_ns() > 0)]
+    at = [i for i, n in enumerate(ops) if "spin_kernel" in n]
+    assert len(at) == len(marks)
+    assert not any("Memcpy HtoD" not in n for n in ops[:at[0]])  # only the uploads first
+    regions: dict[str, set] = {}
+    for k, (a, b) in enumerate(zip(at, at[1:])):
+        for n in ops[a + 1:b]:
+            regions.setdefault(n, set()).add(marks[k])
+
+    def regions_of(part):
+        return set().union(*(r for n, r in regions.items() if part in n))
+
+    assert regions_of("fused_lut_gemm_kernel") == {"qlinear.main"}
+    assert regions_of("topk_outlier_kernel") == {"qlinear.detect"}
+    assert regions_of("paged_attn::kernel") == {"attn.core"}
+
+
 @pytest.mark.parametrize("kv_quant", [True, False])
 def test_ring_decode_graph_is_bit_equal_to_eager(dev, kv_quant):
     """The fixed-slot engine's decode step as a graph replay against the eager

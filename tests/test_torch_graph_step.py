@@ -9,9 +9,10 @@ CUDA graph, temperature sampling and the kernel-route environment overrides.
 * The packed step reads no tensor on the host and copies none to the
   device: under a dispatch mode that records aten ops, none of the ops that
   sync or lift a host tensor appear (the guard of capture on the CPU). At
-  the telemetry levels off, metrics and trace each step records the same
-  ops, and a whole run the same ops apart from the spans' profiler ranges
-  (the counterpart of JAX's identical jaxprs).
+  the telemetry levels off, metrics, trace and metrics with ``fence`` each
+  step records the same ops, and a whole run the same ops apart from the
+  spans' profiler ranges (the counterpart of JAX's identical jaxprs): the
+  region boundaries add none.
 * ``rope_apply`` is bit-equal to its former formula.
 * ``StepCounts``: one recorded run added N times gives N eager runs' counts.
 * Temperature: ``jax.random.categorical(sub, l / T)`` is ``argmax(l / T +
@@ -49,6 +50,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serving.engine import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serving.graph_step import StepCounts, pool_ptrs  # noqa: E402
 from repro_torch.serving.speculative import make_packed_fn  # noqa: E402
+from repro_torch.serving.telemetry import TelemetryConfig  # noqa: E402
 
 MAIN_SPEC = JSpec(base=JCfg(detection="dynamic", outlier_frac=0.005),
                   rules=[("mlp/wd", {"w_bits": 8})], kv_bits=4, kv_dtype="float32")
@@ -184,8 +186,9 @@ def test_packed_step_records_no_syncing_op(tmp_path, kv_quant):
 
 def test_packed_step_ops_equal_at_off_metrics_and_trace(tmp_path):
     """Telemetry wraps no step code: every packed step of a short run, op
-    by op, is the same at off, metrics and trace and holds no op that syncs
-    or lifts a host tensor; the whole run's aten ops are the same too, apart
+    by op, is the same at off, metrics, trace and metrics with ``fence``
+    (whose region boundaries add no op) and holds no op that syncs or
+    lifts a host tensor; the whole run's aten ops are the same too, apart
     from the profiler ranges (``profiler.*``) the spans open."""
     cfg = j_smoke("llama3_2_1b")
     jmodel = j_build(cfg)
@@ -213,11 +216,12 @@ def test_packed_step_ops_equal_at_off_metrics_and_trace(tmp_path):
             out = eng.generate(prompts, max_new_tokens=4)
         return out, steps, [op for op in whole.ops if not op.startswith("profiler.")]
 
-    runs = [run(level) for level in ("off", "metrics", "trace")]
-    assert runs[0][0] == runs[1][0] == runs[2][0]
-    assert len(runs[0][1]) > 3 and runs[0][1] == runs[1][1] == runs[2][1]
+    fenced = TelemetryConfig(level="metrics", fence=True)
+    runs = [run(level) for level in ("off", "metrics", "trace", fenced)]
+    assert runs[0][0] == runs[1][0] == runs[2][0] == runs[3][0]
+    assert len(runs[0][1]) > 3 and runs[0][1] == runs[1][1] == runs[2][1] == runs[3][1]
     assert not any(bad for _, bad in runs[0][1])
-    assert runs[0][2] == runs[1][2] == runs[2][2]
+    assert runs[0][2] == runs[1][2] == runs[2][2] == runs[3][2]
 
 
 def test_rope_apply_is_bit_equal_to_the_former_formula():

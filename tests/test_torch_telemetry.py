@@ -18,7 +18,19 @@
   by observation count only, and the route gauges not at all (JAX counts
   traces, the port calls).
 * ``off`` reads all zeros. (That the packed step runs the same aten ops at
-  off, metrics and trace is in ``tests/test_torch_graph_step.py``.)
+  off, metrics and trace, fenced or not, is in
+  ``tests/test_torch_graph_step.py``.)
+* The host phases of a step record (port only): ``admit`` .. ``commit`` in
+  order and disjoint under an injected phase clock, absent from every
+  export; under a CPU ``torch.profiler`` run the ``replay`` phase and the
+  ``packed_step`` range agree within 100 us (both on the profiler's clock).
+* The region boundaries (port only): on the CPU, a recorder set by hand
+  sees one flat sequence per packed step -- per quantized projection
+  ``qlinear.main``, ``qlinear.detect``, ``qlinear.residual``,
+  ``qlinear.comp_dequant``, ``qlinear.comp_matmul``, then ``other``; per
+  layer ``attn.core``; ``head`` last -- and the boundaries issue no aten op.
+  ``RegionMarks`` launches one marker per boundary while it records and
+  keeps the regions in order.
 """
 
 import json
@@ -477,3 +489,145 @@ def test_allocator_gauges_match_jax():
     assert got[0][-1]["counters"]["serving_block_evictions_pressure"] == 1
     assert got[0][1]["gauges"] == {"serving_blocks_cached": 1, "serving_blocks_free": 2,
                                    "serving_blocks_live": 0}
+
+
+# ---------------------------------------------------------------------------
+# host phases and region boundaries (port only)
+# ---------------------------------------------------------------------------
+
+PHASES = ["admit", "plan", "pack", "replay", "sample", "commit"]
+
+
+def test_step_phases_are_ordered_and_disjoint(artifact, tmp_path):
+    """Under a phase clock that counts its reads, every record's phases
+    are the six in order, each boundary one read (``pack`` ends where
+    ``replay`` starts, as does ``sample`` where ``commit`` starts), and no
+    export carries them."""
+    from repro_torch.serving.scheduler import Scheduler
+
+    _, _, _, art = artifact
+    reads = iter(range(10**6))
+    tel = PT.Telemetry(PT.TelemetryConfig(level="trace"), phase_clock=lambda: next(reads))
+    sc = ServeConfig.from_spec(art.spec, cache_len=64, block_size=8, prefill_chunk=4)
+    sched = Scheduler(art.model, art.params, sc, slots=2, telemetry=tel)
+    for p in ([1, 2, 3, 4, 5], [6, 7], [8, 9, 10]):
+        sched.submit(p, 4)
+    sched.run()
+    recs = list(tel.steps)
+    assert len(recs) > 3
+    at = 0
+    for rec in recs:
+        names = [n for n, _, _ in rec["phases"]]
+        assert names == PHASES
+        assert rec["phases"] == [("admit", at, at + 1), ("plan", at + 2, at + 3),
+                                 ("pack", at + 4, at + 5), ("replay", at + 5, at + 6),
+                                 ("sample", at + 7, at + 8), ("commit", at + 8, at + 9)]
+        at += 10
+        assert "region_marks" not in rec  # no graph on the CPU
+    trace = json.loads(tel.export_chrome_trace(tmp_path / "t.json").read_text())
+    steps = [e for e in trace["traceEvents"] if e["name"] == "packed_step" and e["tid"] == 0]
+    assert len(steps) == len(recs) and all("phases" not in e["args"] for e in steps)
+    assert "phases" not in json.dumps(tel.snapshot()) and "phases" not in tel.expfmt()
+
+
+def test_replay_phase_is_the_profilers_packed_step_range(artifact):
+    """The phases' clock is the profiler's: on the CPU, each step's
+    ``replay`` phase and its ``packed_step`` range open and close within
+    100 us of each other (after a first run, which pays the profiler
+    range's one-time set-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, _, art = artifact
+    eng = ServingEngine(art.model, art.params,
+                        ServeConfig.from_spec(art.spec, cache_len=64, block_size=8),
+                        batch_slots=2)
+    prompts = [[1, 2, 3], [4, 5, 6, 7]]
+    eng.generate(prompts, max_new_tokens=3)
+    n = len(eng.telemetry.steps)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.generate(prompts, max_new_tokens=3)
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                    if e.name() == "packed_step")
+    replays = [next((a, b) for name, a, b in rec["phases"] if name == "replay")
+               for rec in list(eng.telemetry.steps)[n:]]
+    assert len(replays) == len(ranges) > 2
+    for (a, b), (x, y) in zip(replays, ranges):
+        assert abs(a - x) < 100_000 and abs(b - y) < 100_000, (a - x, b - y)
+
+
+class _Marks:
+    """A stand-in region recorder: keeps the names, records nothing."""
+
+    def __init__(self):
+        self.names: list[str] = []
+
+    def mark(self, name):
+        self.names.append(name)
+
+
+def test_region_boundaries_are_flat_and_issue_no_op(artifact):
+    """One packed step on the CPU with a recorder set by hand: each
+    quantized projection marks main, detect, residual, comp_dequant and
+    comp_matmul, then other; attention's core and the head come once a
+    layer and once; every region is closed by the next boundary. The aten
+    ops are the same as without the recorder, and with none set a boundary
+    does nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.serving.speculative import make_packed_fn
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    _, _, _, art = artifact
+    step = make_packed_fn(art.model)
+    n = art.model.cfg.n_layers
+
+    def run(marks):
+        pools = art.model.init_caches(2, 64, "float32", quantized=True, layout="paged",
+                                      block_size=8, device="cpu")
+        bt = torch.tensor([[0, 1, -1, -1, -1, -1, -1, -1], [2, -1, -1, -1, -1, -1, -1, -1]],
+                          dtype=torch.int32)
+        pos = torch.tensor([[0], [1], [2], [0]], dtype=torch.int32)
+        slots = torch.tensor([0, 0, 0, 1], dtype=torch.int32)
+        token = PT._REGIONS.set(marks) if marks is not None else None
+        try:
+            with Ops() as rec:
+                _, logits = step(art.params, pools, bt, slots, pos, pos[:, 0] + 1, pos * 5)
+        finally:
+            if token is not None:
+                PT._REGIONS.reset(token)
+        return rec.ops, logits
+
+    marks = _Marks()
+    ops_marked, logits_marked = run(marks)
+    ops_plain, logits_plain = run(None)
+    assert ops_marked == ops_plain and torch.equal(logits_marked, logits_plain)
+    proj = ["qlinear.main", "qlinear.detect", "qlinear.residual", "qlinear.comp_dequant",
+            "qlinear.comp_matmul", "other"]
+    layer = proj * 3 + ["attn.core", "other"] + proj * 3  # wq wk wv, core, wo wi wd
+    assert marks.names == layer * n + ["head", "other"]
+    assert PT.region("qlinear.main") is None  # no recorder: nothing happens
+
+
+def test_region_marks_record_one_marker_per_boundary(monkeypatch):
+    """While recording, each boundary launches one marker kernel and keeps
+    its region's name, between the step's opening and closing ``other``;
+    before and after, a boundary does neither."""
+    launched = []
+    monkeypatch.setattr(torch.cuda, "_sleep", launched.append)
+    marks = PT.RegionMarks()
+    PT.region("head")
+    with marks.recording():
+        PT.region("qlinear.main")
+        PT.region("other")
+        PT.region("head")
+    PT.region("head")
+    assert marks.names == ("other", "qlinear.main", "other", "head", "other")
+    assert launched == [1] * 5
