@@ -4,7 +4,7 @@
 Phases, each printing one JSON line:
 
 1. device  -- the card's name and count, and what ``nvidia-smi`` reports.
-2. build   -- compiles the seven CUDA kernels from ``src/repro_torch/csrc``,
+2. build   -- compiles the eight CUDA kernels from ``src/repro_torch/csrc``,
               one ``nvcc`` per source, all at once.
    build_lut -- the two LUT-GEMM kernels' registers, shared memory and
               spills per instantiation, from ptxas.
@@ -108,6 +108,14 @@ Phases, each printing one JSON line:
               step's statistics JAX's (``expected_probes.json``) within
               ``TRAINED_RTOL`` / ``TRAINED_ATOL`` and a histogram margin.
 
+3a. compensate -- the sparse outlier compensation kernel at the benchmark
+              cells' shapes (danube's 304-row steps into N = 2560, 640,
+              13824 and the W8 K = 6912; granite's 256 rows into 1536 and
+              512), a W3 codebook, decode rows and the narrow-chunk paths:
+              bit for bit its plain version on the card and on the CPU and
+              between two launches; times beside the dense scatter route it
+              replaces (dense residual matrix, whole-weight dequantization,
+              float32 GEMM) on the same inputs, and its bound.
 3b. family_kernels -- the kernels at the shapes of phases 12-16: danube's
               head_dim 80 and GEMMs, nemotron's head_dim 128 and W8 K =
               24576, G = 1 (musicgen, qwen2-moe), Orizuru at N = 6912 and
@@ -266,10 +274,12 @@ TPU_KERNELS = {
     "streaming_quantize_outlier": "src/repro/kernels/topk_outlier.py:221",
     "lut_gemm": "src/repro/kernels/lut_gemm.py:192",
     "bucketize": "src/repro/kernels/bucketize.py:37",
+    "outlier_compensate": "none (jnp: src/repro/core/outlier.py compensate_gather / _scatter)",
 }
 ROWS = 72  # token budget of the serving phase: 8 slots + 64 prefill tokens
 # launches per layer of one forward on the fused route with an int4 pool
-FUSED_PER_LAYER = {"fused_lut_gemm": 6, "topk_outlier": 6, "paged_attn_int4": 1}
+FUSED_PER_LAYER = {"fused_lut_gemm": 6, "topk_outlier": 6, "outlier_compensate": 6,
+                   "paged_attn_int4": 1}
 FUSED_ROUTES = {"gemm_kernel": 6, "detect_kernel": 6}  # dispatches per layer, fused route
 # path A: one plain GEMM and one streaming quantize + detect per projection,
 # one float-page attention per layer
@@ -1369,7 +1379,7 @@ def read_counts(per_layer: dict, forwards: int, layers: int,
 
 
 # the ring attends in plain PyTorch (as JAX's ring does, in XLA): no attention kernel
-RING_PER_LAYER = {"fused_lut_gemm": 6, "topk_outlier": 6}
+RING_PER_LAYER = {"fused_lut_gemm": 6, "topk_outlier": 6, "outlier_compensate": 6}
 
 
 def ring_config(cache_len: int = 1024, spec=None):
@@ -2048,11 +2058,99 @@ def phase_demotions(dev) -> bool:
 
 # granite-moe's blocks: four attention projections on the fused route, the
 # experts' float products outside any kernel (as in JAX)
-MOE_PER_LAYER = {"fused_lut_gemm": 4, "topk_outlier": 4, "paged_attn_int4": 1}
+MOE_PER_LAYER = {"fused_lut_gemm": 4, "topk_outlier": 4, "outlier_compensate": 4,
+                 "paged_attn_int4": 1}
 SSM_ROWS, SSM_SEG = 128, 16  # falcon-mamba's packed step: 8 rows of 16 cells
 HYBRID_ROWS, HYBRID_SEG = 256, 32  # recurrentgemma's: 8 rows of 32 cells
 MOE_ROUTES = {"gemm_kernel": 4, "detect_kernel": 4}
 SWA_NEW_TOKENS = 64
+
+
+COMPENSATE_CASES = [  # (M, K, N, byte weights, w_bits, mul form, case)
+    (304, 2560, 2560, False, 4, True, "danube attn/wq,wo 304 rows"),
+    (304, 2560, 640, False, 4, True, "danube attn/wk,wv N=640"),
+    (304, 2560, 13824, False, 4, True, "danube mlp/wi N=13824"),
+    (304, 6912, 2560, True, 8, True, "danube mlp/wd W8 K=6912"),
+    (256, 1536, 1536, False, 4, True, "granite attn/wq,wo 256 rows"),
+    (256, 1536, 512, False, 4, True, "granite attn/wk,wv N=512"),
+    (304, 2560, 2560, False, 3, False, "danube wq shape W3 float32 origin"),
+    (48, 2560, 13824, False, 4, True, "danube mlp/wi 48 decode rows"),
+    (7, 100, 48, False, 4, True, "rows of 24 bytes (4-byte chunks)"),
+    (5, 100, 30, True, 8, False, "byte rows of 30 (1-byte chunks)"),
+]
+
+
+def compensate_case(dev, gen, m, k, n, byte, w_bits, mul_form, tag, reps=50):
+    """The sparse compensation kernel (``kernels/outlier_compensate.py``) on
+    ``random_inputs`` with 2k = 2 round(K / 200) slots a row: bit for bit its
+    plain version on the card and on the CPU and between two launches. Times
+    (inputs cycled through copies larger than L2; y updated in place, as in
+    the layer): the kernel, its plain version, and the dense scatter route
+    it replaces on the card -- the residuals, the dense residual matrix, the
+    whole weight dequantized and the float32 GEMM -- as the yardstick. The
+    bound counts y read and written (8 bytes an output), the packed weight
+    rows the slots name (each distinct row once), the slots' 12 bytes and
+    the scales, against 2 M T N float32 operations at 67 TFLOP/s."""
+    import torch
+
+    from repro_torch.core.outlier import (OutlierSet, compensate_scatter, num_outliers,
+                                          outlier_residuals_direct)
+    from repro_torch.core.quantize import QuantizedWeight
+    from repro_torch.kernels.outlier_compensate import (outlier_compensate_call,
+                                                        outlier_compensate_plain, random_inputs)
+
+    t = 2 * num_outliers(k, 0.005)
+    draw = lambda: random_inputs(m, k, n, t, byte_packed=byte, mul_form=mul_form, gen=gen,
+                                 w_bits=w_bits)
+    args = draw()
+    y0 = args["y"].clone()
+    got = outlier_compensate_call(**{**args, "y": y0.clone()})
+    again = outlier_compensate_call(**{**args, "y": y0.clone()})
+    exact = torch.equal(got, outlier_compensate_plain(**{**args, "y": y0.clone()}))
+    cpu_args = {a: (v.cpu() if isinstance(v, torch.Tensor) else v) for a, v in args.items()}
+    exact_cpu = torch.equal(got.cpu(), outlier_compensate_plain(**{**cpu_args, "y": y0.cpu()}))
+    repeat = torch.equal(got, again)
+    torch.cuda.synchronize()
+    row_bytes = n if byte else n // 2
+
+    def dense(a):
+        qw = QuantizedWeight(packed=a["w_packed"], codebook=a["w_book"], scale=a["w_scale"],
+                             shape=(k, n), nbits=8 if byte else w_bits)
+        outs = OutlierSet(values=a["values"], channels=a["channels"], mask=a["mask"])
+        r = outlier_residuals_direct(outs, a["scale"], a["a_book"], mul_form=mul_form)
+        return a["y"].add_(compensate_scatter(r, outs, qw))
+
+    want = dense({**args, "y": y0.clone()})
+    top = (want - y0).abs().max().item()
+    err = (got - want).abs().max().item()
+    ok = exact and exact_cpu and repeat and err <= 1e-5 * top
+    sets = [draw() for _ in range(copies_for(m * n * 4 + k * row_bytes))]
+    kern_fns = [lambda a=a: outlier_compensate_call(**a) for a in sets]
+    ms = cuda_ms(kern_fns, reps)
+    dev_ms = device_ms(kern_fns, reps)
+    plain_ms = cuda_ms([lambda a=a: outlier_compensate_plain(**a) for a in sets[:2]], 5)
+    dense_fns = [lambda a=a: dense(a) for a in sets]
+    lib_ms = cuda_ms(dense_fns, 10)
+    lib_dev_ms = device_ms(dense_fns, 10)
+    rows = torch.unique(args["channels"]).numel()
+    nbytes = m * n * 8 + rows * row_bytes + m * t * 12 + m * 4 + n * 4
+    b_ms, b_by = bound(nbytes, 2.0 * m * t * n)
+    res = dict(case=tag, M=m, K=k, N=n, T=t, byte=byte, w_bits=w_bits, mul_form=mul_form,
+               exact=exact, exact_cpu=exact_cpu, repeat=repeat, max_abs_err=err,
+               max_abs_comp=top, ok=ok, kernel_ms=ms, kernel_device_ms=dev_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    emit("kernel_outlier_compensate", **res)
+    return res
+
+
+def phase_kernels_compensate(dev):
+    """Phase 3a: ``COMPENSATE_CASES`` through :func:`compensate_case`; the
+    first is the kernels line's. Returns {kernel: cases}."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    return {"outlier_compensate": [compensate_case(dev, gen, *c) for c in COMPENSATE_CASES]}
 
 
 def phase_kernels_families(dev):
@@ -2595,7 +2693,8 @@ def phase_moe(dev, smi_line) -> dict:
 # phases 15-16: the recurrent families
 # ---------------------------------------------------------------------------
 
-SSM_PER_LAYER = {"fused_lut_gemm": 4, "topk_outlier": 4}  # in, x, dt, out projections
+# in, x, dt, out projections
+SSM_PER_LAYER = {"fused_lut_gemm": 4, "topk_outlier": 4, "outlier_compensate": 4}
 SSM_ROUTES = {"gemm_kernel": 4, "detect_kernel": 4}
 REC_PROJ, ATTN_PROJ = 7, 6  # RG-LRU block: lin_y, lin_x, w_a, w_x, lin_out, wi, wd
 
@@ -2605,7 +2704,7 @@ def hybrid_per_forward(cfg) -> tuple[dict, dict]:
     per recurrent layer, 6 and one attention per attention layer."""
     kinds = cfg.expanded_pattern()
     proj = REC_PROJ * kinds.count("rec") + ATTN_PROJ * kinds.count("attn")
-    return ({"fused_lut_gemm": proj, "topk_outlier": proj,
+    return ({"fused_lut_gemm": proj, "topk_outlier": proj, "outlier_compensate": proj,
              "paged_attn_int4": kinds.count("attn")},
             {"gemm_kernel": proj, "detect_kernel": proj})
 
@@ -2940,7 +3039,8 @@ def vlm_per_forward(cfg) -> tuple[dict, dict]:
     cross block (q, o, wi, wd: the cross K/V come from the cache)."""
     per = cfg.cross_attn_every
     n = cfg.n_layers // per * (6 * (per - 1) + 4)
-    return {"fused_lut_gemm": n, "topk_outlier": n}, {"gemm_kernel": n, "detect_kernel": n}
+    return ({"fused_lut_gemm": n, "topk_outlier": n, "outlier_compensate": n},
+            {"gemm_kernel": n, "detect_kernel": n})
 
 
 def gate_cross_blocks(params, seed: int = 5) -> list[float]:
@@ -4184,8 +4284,8 @@ def phase_launch_group(dev, smi_line, procs) -> dict:
     return out
 
 
-PHASE_GROUPS = ("kernels", "family_kernels", "llama", "swa", "dense_variants", "moe",
-                "recurrent", "train", "vlm", "distributed", "launch")
+PHASE_GROUPS = ("kernels", "compensate", "family_kernels", "llama", "swa", "dense_variants",
+                "moe", "recurrent", "train", "vlm", "distributed", "launch")
 
 
 def main(argv: list[str]) -> int:
@@ -4261,6 +4361,8 @@ def main(argv: list[str]) -> int:
             return True
         return run
 
+    if only & {"kernels", "compensate"}:
+        guarded("compensate kernels", more_kernels(phase_kernels_compensate))
     if only & {"kernels", "family_kernels"}:
         guarded("family kernels", more_kernels(phase_kernels_families))
     if "vlm" in only:
@@ -4326,14 +4428,14 @@ def main(argv: list[str]) -> int:
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
-    if not {"kernels", "llama", "swa", "dense_variants", "moe", "recurrent", "train",
-            "vlm", "distributed", "launch"} <= only:
+    if not {"kernels", "compensate", "llama", "swa", "dense_variants", "moe", "recurrent",
+            "train", "vlm", "distributed", "launch"} <= only:
         print(f"chip_smoke: the groups {sorted(only)} passed (a partial run: no result line)")
         return 0
 
     # each kernel's launches on the path that runs it
     path_launches = {**{k: launches[k] for k in ("fused_lut_gemm", "topk_outlier",
-                                                 "paged_attn_int4")},
+                                                 "outlier_compensate", "paged_attn_int4")},
                      **{k: launches_a[k] for k in ("streaming_quantize_outlier",
                                                    "paged_attn_bf16")},
                      **{k: launches_qs.get(k, 0) for k in ("lut_gemm", "bucketize")}}

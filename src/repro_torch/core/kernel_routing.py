@@ -155,6 +155,9 @@ def record_detect_fallback(tier: str, reason: str) -> None:
 
 
 def record_comp_route(mode: str) -> None:
+    """One compensation on route ``mode``: ``gather`` or ``scatter`` (the
+    dense routes of both packages) or ``kernel`` (the port's sparse
+    compensation kernel, which the JAX package does not have)."""
     _COMP_ROUTES[mode] += 1
 
 

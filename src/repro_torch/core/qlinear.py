@@ -11,8 +11,14 @@ routes by ``detect_kernel`` to the Orizuru kernels or a stable sort: beside
 the fused GEMM the detection-only dual top-k kernel, beside the plain GEMM
 the streaming kernel, which quantizes and detects in one read of the
 activations. On the fused route the residuals are recomputed from the
-gathered outlier values (``outlier_residuals_direct``), so no activation
-index matrix is ever materialised.
+gathered outlier values, so no activation index matrix is ever
+materialised; with ``comp_mode="auto"`` (and float32 compute) the
+compensation there is one sparse kernel (``kernels.ops.outlier_compensate``),
+which adds ``r @ W~[outlier_channels, :]`` into y from the packed weight rows
+at the outlier channels: no dense residual matrix, no dequantized weight, no
+float GEMM. Explicit ``gather`` / ``scatter`` and the plain GEMM route keep the
+JAX package's dense compensation (``core/outlier.py``), ``auto`` choosing
+between them by the token count there.
 
 Where the JAX package demotes a kernel route to plain code the port does
 the same, on every device, counted and warned once: activation codebooks
@@ -28,7 +34,9 @@ LUT-GEMM), ``qlinear.detect`` (the float cast and the top-k, or the
 streaming kernel), ``qlinear.residual`` (``r = x - q(x)`` at the outliers,
 and the scatter route's dense residual matrix), ``qlinear.comp_dequant`` and
 ``qlinear.comp_matmul`` (``core/outlier.py``; the product and its add into
-``y``); the bias and the output cast count to ``other``.
+``y``; the sparse kernel runs in ``comp_matmul``, its residuals with it, and
+leaves ``comp_dequant`` empty); the bias and the output cast count to
+``other``.
 """
 
 from __future__ import annotations
@@ -234,8 +242,9 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
 
     # ---- main branch: LUT-GEMM over all activations ------------------------
     region("qlinear.main")
-    # a window's indices take the whole row's scale
-    scale = qz.token_scale(x, cfg.scale_mode) if window else None
+    # the token scale once, over the whole row: the fused GEMM's and the
+    # outlier residuals'; a window's indices take the whole row's scale
+    scale = qz.token_scale(x, cfg.scale_mode) if window or route == "pallas" else None
     xw = x[..., k0:k1] if window else x
     qa = None
     outs = None
@@ -291,18 +300,28 @@ def qlinear_apply(p: QLinearParams | QLinear, x: torch.Tensor,
             outs = ol.OutlierSet(values=outs.values, mask=outs.mask * here,
                                  channels=torch.clamp(outs.channels - k0, 0, k1 - k0 - 1))
         region("qlinear.residual")
-        if qa is None:
-            r = ol.outlier_residuals_direct(outs, qz.token_scale(x, cfg.scale_mode),
-                                            p.act_codebook, mul_form=mul_form)
-        else:
-            r = ol.outlier_residuals(outs, qa)
         mode = cfg.comp_mode
-        if mode == "auto":
+        if mode == "auto" and route == "pallas" and cfg.compute_dtype == torch.float32:
+            mode = "kernel"
+        elif mode == "auto":
             mode = "gather" if _tokens(x) <= cfg.comp_auto_tokens else "scatter"
         kr.record_comp_route(mode)
-        comp = (ol.compensate_gather(r, outs, p.qw, cfg.compute_dtype) if mode == "gather"
-                else ol.compensate_scatter(r, outs, p.qw, cfg.compute_dtype))
-        y = y + comp
+        if mode == "kernel":
+            from repro_torch.kernels import ops as kops
+
+            # residuals and products in one sparse pass, added into y in place;
+            # the dense routes' boundaries stay, comp_dequant empty
+            region("qlinear.comp_dequant")
+            region("qlinear.comp_matmul")
+            y = kops.outlier_compensate(y, outs, scale, p.act_codebook, p.qw, mul_form=mul_form)
+        else:
+            if qa is None:
+                r = ol.outlier_residuals_direct(outs, scale, p.act_codebook, mul_form=mul_form)
+            else:
+                r = ol.outlier_residuals(outs, qa)
+            comp = (ol.compensate_gather(r, outs, p.qw, cfg.compute_dtype) if mode == "gather"
+                    else ol.compensate_scatter(r, outs, p.qw, cfg.compute_dtype))
+            y = y + comp
     region("other")
 
     if cfg.probe and nx.collecting() and not window:

@@ -38,7 +38,7 @@ __all__ = ["KERNELS", "LAUNCHES", "PLAIN_ON_CUDA", "COUNTERS", "SMS", "reset_cou
            "build_all", "entry", "build_dir", "check", "tickets"]
 
 KERNELS = ("fused_lut_gemm", "topk_outlier", "paged_attn_int4", "paged_attn_bf16",
-           "streaming_quantize_outlier", "lut_gemm", "bucketize")
+           "streaming_quantize_outlier", "lut_gemm", "bucketize", "outlier_compensate")
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
 COUNTERS = (LAUNCHES, PLAIN_ON_CUDA)

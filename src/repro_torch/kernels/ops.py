@@ -5,7 +5,8 @@ in, quantized in the tile) apply the rank-1 scales around the unscaled
 kernel product and dispatch both weight tiers (nibble <= 4 bits, byte 5..8
 bits); ``bucketize`` is the Clustering Unit; ``topk_outlier`` is the Orizuru
 detection; ``quantize_outlier_streaming`` quantizes and detects in one read
-of the activations. Leading batch axes are flattened here.
+of the activations; ``outlier_compensate`` adds the outliers' compensation
+into the main branch's output in place. Leading batch axes are flattened here.
 ``autotune_lut_blocks`` times the LUT-GEMM kernels' tile choices for one
 shape and caches the winner, which later calls of that shape use.
 ``index_histogram`` counts codebook indices for the quality probes.
@@ -24,10 +25,11 @@ from repro_torch.core.quantize import (QuantizedActivation, QuantizedWeight,
 from repro_torch.kernels.bucketize import bucketize_call
 from repro_torch.kernels.lut_gemm import check_blocks, fused_lut_gemm
 from repro_torch.kernels.lut_gemm import lut_gemm as lut_gemm_call
+from repro_torch.kernels.outlier_compensate import outlier_compensate_call
 from repro_torch.kernels.topk_outlier import streaming_quantize_outlier_call, topk_outlier_call
 
 __all__ = ["lut_gemm", "lut_gemm_fused", "autotune_lut_blocks", "bucketize", "topk_outlier",
-           "quantize_outlier_streaming", "index_histogram"]
+           "quantize_outlier_streaming", "outlier_compensate", "index_histogram"]
 
 # shape key -> (block_m, block_n, block_k), consulted by the LUT-GEMM wrappers
 # below when no explicit ``blocks`` is given
@@ -142,6 +144,29 @@ def lut_gemm_fused(x: torch.Tensor, codebook: torch.Tensor, qw: QuantizedWeight,
                        mul_form=x.dtype == torch.bfloat16, blocks=blocks)
     y = y.reshape(*lead, qw.shape[1])
     return (y * s.reshape(*lead, 1) * qw.scale).to(out_dtype)
+
+
+def outlier_compensate(y: torch.Tensor, outs: OutlierSet, scale: torch.Tensor,
+                       codebook: torch.Tensor, qw: QuantizedWeight,
+                       mul_form: bool = False) -> torch.Tensor:
+    """``y (..., N) += r @ W~[channels, :]`` in place, float32; returns ``y``.
+
+    The residuals ``r`` are recomputed from the outlier values against the
+    activation ``codebook`` with the per-token ``scale`` (..., 1), as
+    ``core.outlier.outlier_residuals_direct`` computes them (``mul_form``:
+    the bfloat16 compare form); masked slots add nothing, a duplicate
+    channel adds twice. ``y`` must be float32 and contiguous."""
+    n = qw.shape[1]
+    t = outs.values.shape[-1]
+    book = codebook.float().contiguous()
+    rows = lambda a: a.reshape(-1, t).contiguous()
+    outlier_compensate_call(
+        y.view(-1, n), rows(outs.values.float()), rows(outs.channels.int()),
+        rows(outs.mask.float()), scale.reshape(-1, 1).float().contiguous(),
+        boundaries_from_centroids(book).contiguous(), book, qw.packed.contiguous(),
+        qw.codebook.float().contiguous(), qw.scale.float().contiguous(),
+        byte_packed=qw.nbits > 4, mul_form=mul_form)
+    return y
 
 
 def index_histogram(idx: torch.Tensor, n_bins: int,

@@ -293,6 +293,10 @@ class Scheduler:
                 "serving_outlier_comp_scatter",
                 fn=lambda: kr.comp_route_counts().get("scatter", 0),
                 help="compensations resolved to the scatter + dense route"),
+            "outlier_comp_kernel": tel.gauge(
+                "serving_outlier_comp_kernel",
+                fn=lambda: kr.comp_route_counts().get("kernel", 0),
+                help="compensations resolved to the sparse compensation kernel"),
         }
         k1 = (self.spec.k + 1) if self.spec else 1
         self._h_accept = tel.histogram("serving_spec_accepted_per_round",

@@ -346,6 +346,125 @@ def test_bucketize_kernel_scalar_path_when_offsets_differ(dev, x_off, idx_off):
         assert torch.equal(idx.view(x.shape), bucketize_plain(x, bounds))
 
 
+@pytest.mark.parametrize("m,k,n,byte,w_bits,mul_form,y_off", [
+    (304, 2560, 2560, False, 4, True, 0),  # danube attn/wq, wo: 304-row steps, 2k = 26
+    (304, 2560, 640, False, 4, True, 0),  # danube attn/wk, wv
+    (304, 2560, 13824, False, 4, True, 0),  # danube mlp/wi
+    (304, 6912, 2560, True, 8, True, 0),  # danube mlp/wd W8, 2k = 70
+    (256, 1536, 1536, False, 4, True, 0),  # granite attn/wq, wo: 256-row steps, 2k = 16
+    (256, 1536, 512, False, 4, True, 0),  # granite attn/wk, wv
+    (304, 2560, 2560, False, 3, False, 0),  # W3 (the draft's 8 centroids), float32 origin
+    (8, 6912, 2560, True, 8, False, 0),  # decode rows, float32 origin
+    (2048, 2560, 13824, False, 4, True, 0),  # a long prefill: 16-byte chunks
+    (304, 2560, 640, False, 4, True, 1),  # y 4 bytes off 16-byte alignment: scalar stores
+    (7, 100, 48, False, 4, True, 0),  # rows of 24 bytes: 4-byte chunks
+    (9, 64, 50, False, 4, False, 0),  # rows of 25 bytes: 1-byte chunks
+    (5, 100, 30, True, 8, True, 0),  # byte rows of 30
+])
+def test_outlier_compensate_kernel_vs_plain(dev, m, k, n, byte, w_bits, mul_form, y_off):
+    """The sparse compensation kernel at the benchmark cells' shapes (and
+    the other chunk widths and stores): bit for bit its plain version on the
+    card and on the CPU (each product and sum rounded alone, in the same
+    order; masked slots and a channel in both sets among the inputs), the
+    same bits on a second launch, and within float32 summation order of the
+    dense scatter route it replaces."""
+    from repro_torch.core.outlier import (OutlierSet, compensate_scatter, num_outliers,
+                                          outlier_residuals_direct)
+    from repro_torch.core.quantize import QuantizedWeight
+    from repro_torch.kernels import build
+    from repro_torch.kernels.outlier_compensate import (NAME, outlier_compensate_call,
+                                                        outlier_compensate_plain, random_inputs)
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    t = 2 * num_outliers(k, 0.005)
+    args = random_inputs(m, k, n, t, byte_packed=byte, mul_form=mul_form, gen=g, w_bits=w_bits)
+    if y_off:
+        args["y"] = torch.empty(m * n + y_off, device=dev)[y_off:].view(m, n).copy_(args["y"])
+    y0 = args["y"].clone()
+    launches = build.LAUNCHES[NAME]
+    got = outlier_compensate_call(**args).clone()
+    plain = outlier_compensate_plain(**{**args, "y": y0.clone()})
+    cpu = outlier_compensate_plain(**{a: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                                      for a, v in {**args, "y": y0.clone()}.items()})
+    again = outlier_compensate_call(**{**args, "y": y0.clone()})
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[NAME] == launches + 2
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), cpu) and torch.equal(again, got)
+    qw = QuantizedWeight(packed=args["w_packed"], codebook=args["w_book"], scale=args["w_scale"],
+                         shape=(k, n), nbits=8 if byte else w_bits)
+    outs = OutlierSet(values=args["values"], channels=args["channels"], mask=args["mask"])
+    r = outlier_residuals_direct(outs, args["scale"], args["a_book"], mul_form=mul_form)
+    dense = compensate_scatter(r, outs, qw)
+    top = dense.abs().max().item()
+    assert (got - y0 - dense).abs().max().item() <= 1e-5 * top
+
+
+def test_outlier_compensate_kernel_replays_in_a_graph(dev):
+    """Captured in a CUDA graph, the kernel adds into the captured y on every
+    replay: each replay from the same y gives the eager call's bits."""
+    from repro_torch.kernels.outlier_compensate import outlier_compensate_call, random_inputs
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    args = random_inputs(304, 2560, 13824, 26, byte_packed=False, mul_form=True, gen=g)
+    y0 = args["y"].clone()
+    eager = outlier_compensate_call(**args).clone()
+    buf = y0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outlier_compensate_call(**{**args, "y": buf})  # warm-up on the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outlier_compensate_call(**{**args, "y": buf})
+    for _ in range(2):
+        buf.copy_(y0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(buf, eager)
+
+
+def test_qlinear_fused_route_compensates_through_the_kernel(dev):
+    """A danube-sized projection (304 bfloat16 rows, K = N = 2560, W4A4,
+    dynamic outliers) on the card: ``comp_mode="auto"`` launches the
+    compensation kernel once, counts ``kernel`` and runs no plain version;
+    explicit ``scatter`` and ``gather`` stay dense. The three outputs agree
+    within float32 summation order (rtol 1e-5 of max |y|)."""
+    import dataclasses
+
+    from repro_torch.core import kernel_routing as kr
+    from repro_torch.core.qlinear import QLinearConfig, QLinearParams, qlinear_apply
+    from repro_torch.core.quantize import QuantizedWeight
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_gemm import random_packed
+    from repro_torch.models.model import _default_codebook
+
+    g = torch.Generator(device=dev).manual_seed(304)
+    k = n = 2560
+    qw = QuantizedWeight(packed=random_packed(k, n, 16, False, g),
+                         codebook=torch.sort(torch.randn(16, generator=g, device=dev)).values,
+                         scale=torch.rand(n, generator=g, device=dev) * 0.02 + 0.01,
+                         shape=(k, n), nbits=4)
+    p = QLinearParams(qw=qw, act_codebook=_default_codebook(4, device=dev), bias=None,
+                      thr_lo=None, thr_hi=None, cfg=QLinearConfig(outlier_frac=0.005))
+    x = torch.randn((304, k), generator=g, device=dev) * 1.5
+    x[:, ::97] *= 8.0  # outlier channels
+    x = x.to(torch.bfloat16)
+    ys = {}
+    for mode in ("auto", "scatter", "gather"):
+        kr.reset()
+        build.reset_counts()
+        pm = dataclasses.replace(p, cfg=dataclasses.replace(p.cfg, comp_mode=mode))
+        ys[mode] = qlinear_apply(pm, x, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert kr.comp_route_counts() == {"kernel" if mode == "auto" else mode: 1}
+        assert build.LAUNCHES["outlier_compensate"] == (mode == "auto")
+        assert not any(build.PLAIN_ON_CUDA.values())
+    top = ys["scatter"].abs().max().item()
+    for mode in ("auto", "gather"):
+        assert (ys[mode] - ys["scatter"]).abs().max().item() <= 1e-5 * top
+
+
 @pytest.mark.parametrize("overrides,fallbacks,detect_fallbacks,topk", [
     (dict(a_bits=5, detection="dynamic", kernel="pallas"), 1, 0, 1),
     (dict(a_bits=8, detection="dynamic", kernel="auto"), 1, 0, 1),
@@ -611,6 +730,9 @@ def test_graph_step_is_bit_equal_to_the_eager_step(dev, route):
     assert not any(g_counts[1].values())  # no plain version on a CUDA tensor
     kernel = "fused_lut_gemm" if route == "fused" else "streaming_quantize_outlier"
     assert g_counts[0][kernel] == 6 * model.cfg.n_layers * 6
+    # the fused route compensates through the sparse kernel, path A densely
+    assert g_counts[0].get("outlier_compensate", 0) == (
+        6 * model.cfg.n_layers * 6 if route == "fused" else 0)
 
 
 def test_graph_capture_syncs_nothing(dev):
@@ -740,6 +862,7 @@ def test_fenced_graph_step_marks_its_regions(dev):
 
     assert regions_of("fused_lut_gemm_kernel") == {"qlinear.main"}
     assert regions_of("topk_outlier_kernel") == {"qlinear.detect"}
+    assert regions_of("outlier_compensate_kernel") == {"qlinear.comp_matmul"}
     assert regions_of("paged_attn::kernel") == {"attn.core"}
 
 

@@ -118,6 +118,27 @@ def test_qlinear_compensation_routes(comp_mode, dtype):
     assert kr.comp_route_counts() == {comp_mode: 1}
 
 
+@pytest.mark.parametrize("comp_mode", ["auto", "gather", "scatter"])
+@pytest.mark.parametrize("detection", ["dynamic", "static"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_route_auto_compensation_takes_the_kernel(comp_mode, detection, dtype):
+    """On the fused route ``comp_mode="auto"`` takes the sparse compensation
+    kernel (on CPU tensors its plain version) at any token count, counted as
+    ``kernel``; explicit ``gather`` / ``scatter`` keep the dense routes and
+    count as before. Every mode gives JAX's output."""
+    cfg = JCfg(detection=detection, outlier_frac=0.02, comp_mode=comp_mode, kernel="pallas",
+               detect_kernel="pallas")
+    p = _layer(cfg, seed=21 + len(detection))
+    xj, xt = _x(10, 70, 128, dtype)
+    kr.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # static: the detection demotion
+        got = qlinear_apply(to_port(p), xt)
+        want = j_apply(p, xj)
+    assert kr.comp_route_counts() == {"kernel" if comp_mode == "auto" else comp_mode: 1}
+    _compare(got, want, dtype)
+
+
 def test_comp_mode_auto_switches_at_64_tokens():
     p = to_port(_layer(JCfg(detection="dynamic", kernel="jnp", detect_kernel="jnp")))
     kr.reset()
